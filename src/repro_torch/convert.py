@@ -1,0 +1,93 @@
+"""Carry a JAX DiT param pytree across to the port.
+
+The input is the reference's params as numpy arrays (for example
+``jax.tree.map(np.asarray, params)``), with the per-block tensors stacked
+on a leading ``n_layers`` axis.  Every matrix that the reference applies as
+``x @ w`` is stored ``(in, out)`` there; the port keeps it as an
+``nn.Linear`` weight ``(out, in)``, so each such matrix is transposed.
+Vectors (biases, LayerNorm scales) and the alpha logits copy as they are.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import sla2 as S
+from repro_torch.core.router import RouterParams
+from repro_torch.models import dit as D
+
+
+def _set(dst: torch.Tensor, src, transpose: bool = False) -> None:
+    t = torch.from_numpy(np.array(src, dtype=np.float32))
+    if transpose:
+        t = t.T
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(t.shape)} does not fit "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(t.to(dst.dtype))
+
+
+def _linear(lin, w, b=None) -> None:
+    _set(lin.weight, w, transpose=True)       # (in, out) -> (out, in)
+    if b is not None:
+        _set(lin.bias, b)
+
+
+def dit_params_from_numpy(tree: dict, cfg: D.DiTConfig,
+                          device="cuda") -> D.DiTParams:
+    """Build ``DiTParams`` on ``device`` holding the reference's values."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = D.init_dit(g, cfg, dev)
+    with torch.no_grad():
+        _linear(params.patch_in, tree["patch_in"]["w"], tree["patch_in"]["b"])
+        _linear(params.t_mlp_w1, tree["t_mlp"]["w1"])
+        _linear(params.t_mlp_w2, tree["t_mlp"]["w2"])
+        _set(params.final_ln.scale, tree["final_ln"]["scale"])
+        _set(params.final_ln.bias, tree["final_ln"]["bias"])
+        _linear(params.final_ada, tree["final_ada"]["w"],
+                tree["final_ada"]["b"])
+        _linear(params.patch_out, tree["patch_out"]["w"],
+                tree["patch_out"]["b"])
+        blocks = tree["blocks"]
+        for li, bp in enumerate(params.blocks):
+            at = lambda x: np.asarray(x)[li]
+            for name in ("ln1", "ln_x", "ln2"):
+                _set(getattr(bp, name).scale, at(blocks[name]["scale"]))
+                _set(getattr(bp, name).bias, at(blocks[name]["bias"]))
+            for name in ("wq", "wk", "wv", "wo", "xq", "xk", "xv", "xo"):
+                _linear(getattr(bp, name), at(blocks[name]))
+            _linear(bp.mlp.w_up, at(blocks["mlp"]["w_up"]))
+            _linear(bp.mlp.w_down, at(blocks["mlp"]["w_down"]))
+            _linear(bp.ada, at(blocks["ada"]["w"]), at(blocks["ada"]["b"]))
+            if bp.sla2 is not None:
+                _copy_sla2(bp.sla2, {"alpha_logit": at(
+                    blocks["sla2"]["alpha_logit"]), "router": {
+                        k: at(w) for k, w in
+                        (blocks["sla2"].get("router") or {}).items()}})
+    return params
+
+
+def _copy_sla2(dst: S.SLA2Params, tree: dict) -> None:
+    _set(dst.alpha_logit, tree["alpha_logit"])
+    router = tree.get("router") or {}
+    if dst.router is not None and router:
+        _linear(dst.router.proj_q, router["proj_q"])
+        _linear(dst.router.proj_k, router["proj_k"])
+
+
+def sla2_params_from_numpy(tree: dict, device="cuda") -> S.SLA2Params:
+    """One SLA2 layer's params ({"router": {"proj_q", "proj_k"},
+    "alpha_logit"}) as ``SLA2Params`` on ``device``."""
+    dev = resolve_device(device)
+    alpha = np.asarray(tree["alpha_logit"])
+    router = None
+    if tree.get("router"):
+        head_dim = np.asarray(tree["router"]["proj_q"]).shape[0]
+        router = RouterParams(head_dim, device=dev)
+    params = S.SLA2Params(router, torch.zeros(alpha.shape, device=dev))
+    with torch.no_grad():
+        _copy_sla2(params, tree)
+    return params
