@@ -6,8 +6,13 @@ on a leading ``n_layers`` axis.  Every matrix that the reference applies as
 ``x @ w`` is stored ``(in, out)`` there; the port keeps it as an
 ``nn.Linear`` weight ``(out, in)``, so each such matrix is transposed.
 Vectors (biases, LayerNorm scales) and the alpha logits copy as they are.
+``train_state_from_numpy`` carries a whole train state across: the AdamW
+moments and the EF buffers have the params' tree, so they go through the
+same converter (and its transposes).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -91,3 +96,30 @@ def sla2_params_from_numpy(tree: dict, device="cuda") -> S.SLA2Params:
     with torch.no_grad():
         _copy_sla2(params, tree)
     return params
+
+
+def _named_tensors(tree: dict, cfg: D.DiTConfig, dtype: str, dev) -> dict:
+    """A params-shaped tree as {parameter name: tensor} in ``dtype``."""
+    mod = dit_params_from_numpy(tree, dataclasses.replace(cfg, dtype=dtype),
+                                dev)
+    return {n: p.detach() for n, p in mod.named_parameters()}
+
+
+def train_state_from_numpy(state: dict, cfg: D.DiTConfig,
+                           device="cuda") -> dict:
+    """A reference train state ({"params", "opt": {"m", "v", "step"}, and
+    "ef" with EF compression}, as numpy) as the port's train state on
+    ``device``; the moments keep their dtype (``state_dtype``)."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    leaf = lambda tree: np.asarray(tree["patch_in"]["w"])
+    out = {"params": dit_params_from_numpy(state["params"], cfg, dev),
+           "opt": {"m": _named_tensors(opt["m"], cfg,
+                                       str(leaf(opt["m"]).dtype), dev),
+                   "v": _named_tensors(opt["v"], cfg,
+                                       str(leaf(opt["v"]).dtype), dev),
+                   "step": torch.tensor(int(np.asarray(opt["step"])),
+                                        dtype=torch.int32)}}
+    if "ef" in state:
+        out["ef"] = _named_tensors(state["ef"], cfg, "bfloat16", dev)
+    return out

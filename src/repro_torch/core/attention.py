@@ -5,7 +5,9 @@ models only, never at 32k).  Shapes follow (B, H, N, D); block masks are
 Unselected entries of the sparse branch do not take part in the row
 softmax (the NEG_INF interpretation of ``S (.) M``, what Algorithm 2
 computes by skipping blocks); the linear branch runs over the complement.
-Soft (stage-1) masks wait for the training slice.
+With ``soft`` the mask is the SoftTop-k relaxation of stage-1 training:
+the sparse branch adds ``log(M + 1e-12)`` to the scores and the linear
+branch weights by ``clip(1 - M, 0, 1)``.
 """
 from __future__ import annotations
 
@@ -54,11 +56,12 @@ def full_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
 
 
 def sparse_attention(q, k, v, mask_c, *, block_q: int, block_k: int,
-                     causal: bool = False, quant_bits: str = "none",
-                     prefix_len: int = 0):
+                     causal: bool = False, soft: bool = False,
+                     quant_bits: str = "none", prefix_len: int = 0):
     """Block-masked softmax attention (paper Eq. 2, the O_s branch) with a
-    hard {0, 1} block mask; ``quant_bits`` applies QAT fake-quant (Q/K per
-    tile before QK^T, P per row and V per tensor before PV)."""
+    hard {0, 1} or soft (0, 1) block mask; ``quant_bits`` applies QAT
+    fake-quant (Q/K per tile before QK^T, P per row and V per tensor
+    before PV)."""
     n_q, n_k = q.shape[-2], k.shape[-2]
     qq, kk = q, k
     if quant_bits != "none":
@@ -68,7 +71,7 @@ def sparse_attention(q, k, v, mask_c, *, block_q: int, block_k: int,
     s = _scaled_scores(qq, kk)
     m = masklib.expand_mask(mask_c.to(torch.float32), block_q, block_k)
     neg = torch.full_like(s, masklib.NEG_INF)
-    s = torch.where(m > 0.5, s, neg)
+    s = s + torch.log(m + _EPS) if soft else torch.where(m > 0.5, s, neg)
     if causal:
         cm = masklib.token_causal_mask(n_q, n_k, 0, prefix_len,
                                        device=q.device)
@@ -85,12 +88,14 @@ def sparse_attention(q, k, v, mask_c, *, block_q: int, block_k: int,
 
 
 def linear_attention(q, k, v, mask_c, *, block_q: int, block_k: int,
-                     causal: bool = False, prefix_len: int = 0):
+                     causal: bool = False, soft: bool = False,
+                     prefix_len: int = 0):
     """The O_l branch (paper Eq. 3): row-normalised linear attention
     ``norm(phi(Q) phi(K)^T (.) (1 - M)) V`` over the block complement."""
     p = torch.einsum("...nd,...md->...nm", phi(q), phi(k))
     m = masklib.expand_mask(mask_c.to(torch.float32), block_q, block_k)
-    p = p * (m <= 0.5).to(torch.float32)
+    p = p * (torch.clamp(1.0 - m, 0.0, 1.0) if soft
+             else (m <= 0.5).to(torch.float32))
     if causal:
         cm = masklib.token_causal_mask(q.shape[-2], k.shape[-2], 0,
                                        prefix_len, device=q.device)

@@ -1,12 +1,12 @@
-"""The SLA2 learnable router R (paper Sec. 4), hard routing only.
+"""The SLA2 learnable router R (paper Sec. 4).
 
     Qbar = pool(Q);  Kbar = pool(K)                       (Eq. 15)
     P_c  = softmax( proj_q(Qbar) proj_k(Kbar)^T / sqrt(d) )
     M_c  = Top-k(k%, P_c)                                 (Eq. 16)
 
-SoftTop-k (stage-1 training) waits for the training slice.  Causal
-routing is restricted to visible blocks and forces the diagonal block
-into the sparse branch.
+Hard Top-k at inference and in stage 2; SoftTop-k (``soft_topk.py``) in
+stage-1 training.  Causal routing is restricted to visible blocks and
+forces the diagonal block into the sparse branch.
 """
 from __future__ import annotations
 
@@ -18,15 +18,18 @@ import torch
 from torch import nn
 
 from repro_torch.core import masks
+from repro_torch.core.soft_topk import soft_topk
 
 
 @dataclasses.dataclass(frozen=True)
 class RouterConfig:
     """Routing geometry: tile sizes, k% of blocks kept, causal/prefix-LM
-    and sliding-window restrictions, learnable projections or not."""
+    and sliding-window restrictions, learnable projections or not, and
+    the SoftTop-k temperature ``tau``."""
     block_q: int = 128
     block_k: int = 64
     k_frac: float = 0.05
+    tau: float = 0.1
     learnable: bool = True
     causal: bool = False
     prefix_len: int = 0
@@ -110,11 +113,18 @@ def _allowed_and_forced(t_m: int, t_n: int, cfg: RouterConfig, device=None):
 
 
 def route(params: Optional[RouterParams], q: torch.Tensor, k: torch.Tensor,
-          cfg: RouterConfig) -> torch.Tensor:
-    """Hard {0, 1} block mask M_c (..., T_m, T_n)."""
-    p_c = router_scores(params, q, k, cfg)
+          cfg: RouterConfig, *, soft: bool = False) -> torch.Tensor:
+    """Block mask M_c (..., T_m, T_n): hard {0, 1} Top-k, or with ``soft``
+    the SoftTop-k relaxation in (0, 1) over the un-normalised scores (the
+    softmaxed ones are O(1/T_n), far below any usable temperature)."""
+    p_c = router_scores(params, q, k, cfg, normalize=not soft)
     t_m, t_n = p_c.shape[-2], p_c.shape[-1]
     allowed, force = _allowed_and_forced(t_m, t_n, cfg, device=p_c.device)
+    if soft:
+        m = soft_topk(p_c, cfg.k_frac, cfg.tau, allowed)
+        if force is not None:
+            m = torch.maximum(m, force.to(m.dtype))
+        return m
     k_sel = max(1, round(cfg.k_frac * t_n))
     return masks.topk_block_mask(p_c, k_sel, allowed=allowed, force=force)
 

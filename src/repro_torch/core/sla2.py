@@ -1,4 +1,4 @@
-"""SLA2 as a PyTorch module (hard routing; soft routing waits for training).
+"""SLA2 as a PyTorch module.
 
     O = alpha (.) O_s + (1 - alpha) (.) O_l          (Eq. 13)
     O_s = softmax(Q K^T / sqrt(d) (.) M) V
@@ -9,7 +9,9 @@
 a logit.  Three interchangeable implementations:
   * impl='ref'    - dense O(N^2) oracle (tests, small models);
   * impl='gather' - plain PyTorch gathered tiles (core/block_sparse.py);
-  * impl='kernel' - the CUDA sparse-branch kernel (kernels/ops.py).
+  * impl='kernel' - the CUDA sparse-branch kernels (kernels/ops.py).
+``soft=True`` (stage-1 training: SoftTop-k routing) always takes the ref
+path, whatever ``impl`` says.  ``sla2_mse_loss`` is the stage-1 objective.
 """
 from __future__ import annotations
 
@@ -95,23 +97,25 @@ def _expand_alpha(a_blocks: torch.Tensor, block_q: int, n: int) -> torch.Tensor:
 
 
 def sla2_attention(params: SLA2Params, q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor, cfg: SLA2Config, *,
+                   v: torch.Tensor, cfg: SLA2Config, *, soft: bool = False,
                    mask_override: Optional[torch.Tensor] = None,
                    return_aux: bool = False):
     """Apply SLA2 to (B, H, N, D) q/k/v; returns O (B, H, N, D) and, with
     ``return_aux``, a dict holding the block mask and its sparsity.  The
     kernel and gather paths route by indices and compute the dense mask
-    only when ``return_aux`` asks for it."""
+    only when ``return_aux`` asks for it; ``soft`` routes with SoftTop-k
+    through the ref path."""
     b, h, n, d = q.shape
     rcfg = cfg.router
+    impl = "ref" if soft else cfg.impl
     mask_c = mask_override
-    if mask_c is None and (cfg.impl == "ref" or return_aux):
-        mask_c = routerlib.route(params.router, q, k, rcfg)
+    if mask_c is None and (impl == "ref" or return_aux):
+        mask_c = routerlib.route(params.router, q, k, rcfg, soft=soft)
 
-    if cfg.impl == "kernel":
+    if impl == "kernel":
         from repro_torch.kernels import ops as kops
         o, aux = kops.sla2_block_sparse(params, q, k, v, cfg)
-    elif cfg.impl == "gather":
+    elif impl == "gather":
         from repro_torch.core import block_sparse
         qf, kf, vf = (x.reshape(b * h, n, x.shape[-1]) for x in (q, k, v))
         idx, valid = routerlib.route_indices(params.router, qf, kf, rcfg)
@@ -125,8 +129,8 @@ def sla2_attention(params: SLA2Params, q: torch.Tensor, k: torch.Tensor,
             q_chunk=cfg.q_chunk)
         o = o.reshape(b, h, n, vf.shape[-1])
         aux = {"idx": idx, "valid": valid}
-    elif cfg.impl == "ref":
-        o = _sla2_ref(params, q, k, v, mask_c, cfg)
+    elif impl == "ref":
+        o = _sla2_ref(params, q, k, v, mask_c, cfg, soft)
         aux = {}
     else:
         raise ValueError(f"unknown impl {cfg.impl!r}")
@@ -142,16 +146,16 @@ def sla2_attention(params: SLA2Params, q: torch.Tensor, k: torch.Tensor,
     return o
 
 
-def _sla2_ref(params, q, k, v, mask_c, cfg: SLA2Config):
+def _sla2_ref(params, q, k, v, mask_c, cfg: SLA2Config, soft: bool):
     b, h, n, d = q.shape
     rcfg = cfg.router
     o_s = attn.sparse_attention(
         q, k, v, mask_c, block_q=rcfg.block_q, block_k=rcfg.block_k,
-        causal=rcfg.causal, quant_bits=cfg.quant_bits,
+        causal=rcfg.causal, soft=soft, quant_bits=cfg.quant_bits,
         prefix_len=rcfg.prefix_len)
     o_l = attn.linear_attention(
         q, k, v, mask_c, block_q=rcfg.block_q, block_k=rcfg.block_k,
-        causal=rcfg.causal, prefix_len=rcfg.prefix_len)
+        causal=rcfg.causal, soft=soft, prefix_len=rcfg.prefix_len)
     t_m = n // rcfg.block_q
     a = _expand_alpha(alpha_for_blocks(params, t_m, h), rcfg.block_q, n)
     # an empty routed complement makes the row fully sparse: alpha = 1
@@ -169,3 +173,16 @@ def _sla2_ref(params, q, k, v, mask_c, cfg: SLA2Config):
     a = torch.where(nonempty, a, 1.0)
     return (a * o_s.to(torch.float32)
             + (1.0 - a) * o_l.to(torch.float32)).to(q.dtype)
+
+
+def sla2_mse_loss(params: SLA2Params, q, k, v, cfg: SLA2Config, *,
+                  soft: bool = True,
+                  causal: Optional[bool] = None) -> torch.Tensor:
+    """Stage-1 objective (Algorithm 1, line 3):
+    L = MSE(FullAttn(Q, K, V), SLA2(Q, K, V, k%, R, alpha))."""
+    causal = cfg.router.causal if causal is None else causal
+    target = attn.full_attention(q, k, v, causal=causal,
+                                 prefix_len=cfg.router.prefix_len)
+    pred = sla2_attention(params, q, k, v, cfg, soft=soft)
+    return torch.mean((pred.to(torch.float32)
+                       - target.to(torch.float32)) ** 2)

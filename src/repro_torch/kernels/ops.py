@@ -1,10 +1,10 @@
 """The SLA2 operator in kernel mode, and the tile helpers of the plain
 kernel versions.
 
-``sparse_attention_op`` is the sparse branch: K-smoothing when quantised,
-then ``sparse_flash_fwd`` (the CUDA kernel on a CUDA tensor, its plain
-version on a CPU tensor).  It is the forward only: the backward kernel
-arrives with the training slice.
+``sparse_attention_op`` is the sparse branch as a ``torch.autograd.Function``:
+K-smoothing when quantised, then ``sparse_flash_fwd`` (the CUDA kernel on
+a CUDA tensor, its plain version on a CPU tensor); its backward is
+``sparse_flash_bwd`` in full precision (the QAT backward).
 
 ``sla2_block_sparse`` is the full operator:
 
@@ -55,16 +55,47 @@ def qdot(a, a_s, b, b_s, *, transpose_b: bool):
     return out * (a_s * b_s)
 
 
+class _SparseAttention(torch.autograd.Function):
+    """Forward: the sparse-branch kernel.  Backward: ``sparse_flash_bwd``
+    on the saved (q, k_used, v, idx, valid, o, lse).  The gradient of
+    ``k_used`` is returned as that of ``k``, an identity through the
+    smoothing, as the reference does: each row of dS sums to 0 when the
+    forward is full precision, so the colmean shift has no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, idx, valid, block_q, block_k, causal,
+                quant_bits, prefix_len):
+        from repro_torch.kernels.sla2_fwd import sparse_flash_fwd
+        k_used = (smooth_k(k) if quant_bits != "none" else k).contiguous()
+        q, v = q.contiguous(), v.contiguous()
+        valid = valid.to(torch.int32)
+        o, lse = sparse_flash_fwd(
+            q, k_used, v, idx, valid, block_q=block_q, block_k=block_k,
+            causal=causal, prefix_len=prefix_len, quant_bits=quant_bits)
+        ctx.save_for_backward(q, k_used, v, idx, valid, o, lse)
+        ctx.geometry = (block_q, block_k, causal, prefix_len)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        from repro_torch.kernels.sla2_bwd import sparse_flash_bwd
+        q, k_used, v, idx, valid, o, lse = ctx.saved_tensors
+        block_q, block_k, causal, prefix_len = ctx.geometry
+        dq, dk, dv = sparse_flash_bwd(
+            q, k_used, v, idx, valid, o, lse, do.contiguous(),
+            block_q=block_q, block_k=block_k, causal=causal,
+            prefix_len=prefix_len)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
 def sparse_attention_op(q, k, v, idx, valid, block_q: int, block_k: int,
                         causal: bool, quant_bits: str, prefix_len: int = 0):
-    """Sparse branch O_s + LSE.  q/k/v (BH, N, d); idx/valid (BH, T_m, K_sel).
-    In quant mode K is smoothed first (softmax-invariant colmean shift)."""
-    from repro_torch.kernels.sla2_fwd import sparse_flash_fwd
-    k_used = smooth_k(k) if quant_bits != "none" else k
-    return sparse_flash_fwd(
-        q.contiguous(), k_used.contiguous(), v.contiguous(), idx,
-        valid.to(torch.int32), block_q=block_q, block_k=block_k,
-        causal=causal, prefix_len=prefix_len, quant_bits=quant_bits)
+    """Sparse branch O_s + LSE, differentiable in q, k, v.  q/k/v
+    (BH, N, d); idx/valid (BH, T_m, K_sel).  In quant mode K is smoothed
+    first (softmax-invariant colmean shift)."""
+    return _SparseAttention.apply(q, k, v, idx, valid, block_q, block_k,
+                                  causal, quant_bits, prefix_len)
 
 
 def sla2_block_sparse(params, q, k, v, cfg):

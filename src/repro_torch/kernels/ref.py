@@ -3,7 +3,7 @@
 The kernels consume routing indices (``idx``/``valid`` from
 ``router.route_indices``); the oracles rebuild the dense block mask from
 them and evaluate the same math with dense einsums.  ``manual_backward``
-waits for the training slice.
+is the dense oracle of the sparse branch's backward (Algorithm 3).
 """
 from __future__ import annotations
 
@@ -98,3 +98,33 @@ def combine_ref(o_s, o_l, den_l, alpha_tok):
     a = torch.where(den_l > _EPS, alpha_tok, 1.0)
     return (a * o_s.to(torch.float32)
             + (1.0 - a) * o_l.to(torch.float32)).to(o_s.dtype)
+
+
+def manual_backward(q, k, v, idx, valid, o_s, lse, do_s, *, block_q: int,
+                    block_k: int, causal: bool):
+    """Paper Algorithm 3 for the sparse branch, in dense math.
+
+    Always full precision (the QAT backward): P is recomputed from Q, K
+    and the saved LSE; D = rowsum(dO . O) uses the forward output, so a
+    quantised forward enters only through ``lse`` and ``o_s``.  Returns
+    (dq, dk, dv) in the dtypes of q, k, v."""
+    n_q, n_kv = q.shape[-2], k.shape[-2]
+    d = q.shape[-1]
+    mask_c = mask_from_indices(idx, valid, n_kv // block_k)
+    m = masklib.expand_mask(mask_c, block_q, block_k)
+    if causal:
+        m = m * masklib.token_causal_mask(n_q, n_kv,
+                                          device=q.device).to(m.dtype)
+    sqrt_d = math.sqrt(d)
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    s = torch.einsum("...nd,...md->...nm", qf, kf) / sqrt_d
+    p = torch.exp(s - lse[..., None]) * m    # empty rows: lse = -inf -> 0
+    p = torch.where(torch.isfinite(p), p, 0.0)
+    do = do_s.to(torch.float32)
+    dv = torch.einsum("...nm,...nd->...md", p, do)
+    dp = torch.einsum("...nd,...md->...nm", do, v.to(torch.float32))
+    dd = torch.sum(do * o_s.to(torch.float32), dim=-1, keepdim=True)
+    ds = p * (dp - dd)
+    dq = torch.einsum("...nm,...md->...nd", ds, kf) / sqrt_d
+    dk = torch.einsum("...nm,...nd->...md", ds, qf) / sqrt_d
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -2,6 +2,7 @@
 the diffusion engine uses.  Only the DiT is ported so far.
 
     model.init(seed, device="cuda")             -> params (DiTParams)
+    model.loss(params, batch)                   -> (loss, metrics)
     model.denoise(params, batch, caches)        -> (latents, caches)
     model.precompute_text_kv(params, text)      -> (k, v) per layer
     model.precompute_step_mods(params, t)       -> modulation tables
@@ -25,6 +26,7 @@ class Model:
     kind: str                     # dit
     cfg: Any
     init: Callable
+    loss: Optional[Callable] = None
     denoise: Optional[Callable] = None
     precompute_text_kv: Optional[Callable] = None
     precompute_step_mods: Optional[Callable] = None
@@ -53,6 +55,7 @@ def _dit_model(cfg: D.DiTConfig) -> Model:
 
     return Model(
         kind="dit", cfg=cfg, init=init, denoise=denoise,
+        loss=lambda p, b: D.flow_matching_loss(p, cfg, b),
         precompute_text_kv=lambda p, text: D.precompute_text_kv(p, cfg, text),
         precompute_step_mods=lambda p, t: D.precompute_step_mods(p, cfg, t))
 

@@ -12,8 +12,14 @@ table over the request's whole timestep schedule).  ``dit_forward`` and
 ``denoise_step`` take them by keyword; ``None`` recomputes in-step with the
 same ops, so cached and uncached outputs are bitwise equal.
 
-The rectified-flow training loss waits for the training slice, and the
-``sla`` / ``sparse_only`` mechanisms wait for ``core/sla.py``.
+Training objective: rectified-flow matching (``flow_matching_loss``),
+    x_t = (1 - t) x0 + t eps,  target v = eps - x0,  L = mean (v_hat - v)^2.
+With ``remat == "full"`` and grad enabled, every block runs under
+``torch.utils.checkpoint``: only its input is kept, and the backward
+re-runs the block's forward (so the sparse-branch forward kernel runs
+twice per layer and step, as under ``jax.checkpoint``).
+
+The ``sla`` / ``sparse_only`` mechanisms wait for ``core/sla.py``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import sla2 as sla2lib
 from repro_torch.core.router import RouterConfig
@@ -55,6 +62,7 @@ class DiTConfig:
     sla2_impl: str = "gather"
     q_chunk: int = 16
     t_emb_dim: int = 256
+    remat: str = "full"             # full | none (training only)
     dtype: str = "bfloat16"
     max_target_len: int = 32768
 
@@ -262,15 +270,32 @@ def dit_forward(params: DiTParams, cfg: DiTConfig, latents, text, t, *,
     t_emb = _t_emb(params, cfg, t) if mods is None else None
     if text is not None:
         text = text.to(cfg.param_dtype)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for li, bp in enumerate(params.blocks):
         kv = None if text_kv is None else (text_kv[0][li], text_kv[1][li])
         mod = None if mods is None else mods["blocks"][li]
-        x = _block_forward(bp, cfg, x, text, t_emb, kv=kv, mod=mod)
+        if remat:
+            x = checkpoint(_block_forward, bp, cfg, x, text, t_emb, kv, mod,
+                           use_reentrant=False)
+        else:
+            x = _block_forward(bp, cfg, x, text, t_emb, kv=kv, mod=mod)
     mod = _ada(params.final_ada, t_emb) if mods is None else mods["final"]
     sh, sc = mod.to(x.dtype).chunk(2, dim=-1)
     x = _modulate(L.layernorm(params.final_ln, x), sh, sc)
     return (F.linear(x, params.patch_out.weight)
             + params.patch_out.bias).to(torch.float32)
+
+
+def flow_matching_loss(params: DiTParams, cfg: DiTConfig, batch: dict):
+    """batch: latents x0 (B, N, c), text (B, n_text, d), noise eps
+    (B, N, c), time t (B,) in (0, 1).  Returns (loss, {"mse": loss})."""
+    x0 = batch["latents"].to(torch.float32)
+    eps = batch["noise"].to(torch.float32)
+    t = batch["time"].to(torch.float32)
+    x_t = (1.0 - t[:, None, None]) * x0 + t[:, None, None] * eps
+    v_hat = dit_forward(params, cfg, x_t, batch["text"], t)
+    loss = torch.mean((v_hat - (eps - x0)) ** 2)
+    return loss, {"mse": loss}
 
 
 def denoise_step(params: DiTParams, cfg: DiTConfig, x_t, text, t, dt, *,

@@ -26,6 +26,7 @@ from repro_torch.core import masks as tmasks
 from repro_torch.core import quant as tquant
 from repro_torch.core import router as trouter
 from repro_torch.core import sla2 as tsla2
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rand(shape, seed, scale=0.5):

@@ -22,6 +22,7 @@ from repro_torch.convert import dit_params_from_numpy
 from repro_torch.models.api import build_model
 from repro_torch.serve import diffusion as DS
 from repro_torch.serve.diffusion import StepScheduler, VideoRequest
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_LAT = 64
 

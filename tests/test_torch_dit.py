@@ -26,6 +26,7 @@ from repro_torch.configs.wan_dit_1_3b import smoke_config
 from repro_torch.convert import dit_params_from_numpy
 from repro_torch.models import dit as TD
 from repro_torch.models import layers as TL
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_LAT = 64
 

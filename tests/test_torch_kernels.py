@@ -28,6 +28,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.sla2_fwd import (sparse_flash_fwd,
                                           sparse_flash_fwd_plain)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [  # (bh, n, d, bq, bk, k_frac), as in tests/test_kernels.py
     (2, 256, 64, 32, 16, 0.3),

@@ -32,10 +32,11 @@ def _imported_roots(path):
 
 def test_port_and_chip_smoke_never_import_jax_or_repro():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "profile_dit_step.py")]
+             os.path.join(REPO, "tools", "profile_dit_step.py"),
+             os.path.join(REPO, "tools", "profile_train_step.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 10
+    assert len(files) > 20
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in FORBIDDEN]
@@ -44,7 +45,9 @@ def test_port_and_chip_smoke_never_import_jax_or_repro():
 
 def test_import_leaves_jax_unloaded_and_builds_nothing():
     code = ("import sys, repro_torch, repro_torch.serve.diffusion, "
-            "repro_torch.kernels.sla2_fwd, repro_torch.convert; "
+            "repro_torch.kernels.sla2_fwd, repro_torch.kernels.sla2_bwd, "
+            "repro_torch.convert, repro_torch.train.stage1, "
+            "repro_torch.train, repro_torch.data, repro_torch.checkpoint; "
             "from repro_torch.kernels import build; "
             "assert not build._loaded; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
