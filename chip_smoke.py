@@ -46,7 +46,29 @@ run outside a checkout of the repository; each prints its wall time):
              for 2 steps with a checkpoint each step, restored bitwise by a
              fresh Trainer;
  9. stage1   run_stage1 at the model's head geometry (12 x 128) on 4096
-             synthetic tokens: finite losses, hard-Top-k MSE lowered.
+             synthetic tokens: finite losses, hard-Top-k MSE lowered;
+10. lm-kernel qwen3-14b at full width and depth (random weights from a
+             seed), once the DiT phases have freed their memory: layer 0's
+             decode inputs (routed pages, totals, alpha) and a mid-prompt
+             prefill chunk, captured from a short 4-slot prefill, go
+             through the paged kernels (sla2_decode_paged.cu: sla2_decode,
+             paged_prefill) and their plain versions; then a sweep over
+             quant_bits x kv_quant x n_rep x W (decode) and offset x window
+             x prefix_len x kv_quant (prefill); CUDA-event times beside the
+             plain versions, the bounds and, for prefill, SDPA over the
+             gathered K/V;
+11. lm-serve ServeEngine(max_slots=4, max_len=32768, prefill_chunk=512,
+             paged_impl="fused") serves four seeded prompts of 8192, 3000,
+             1000 and 200 tokens, 32 new tokens each, the fourth submitted
+             after the first decode dispatch; every launch count is set to
+             0 just before and read just after (prefill launches = 40 x
+             chunks, decode launches = 40 x decode dispatches);
+12. lm-context the same config at 2 layers, f32 weights and pages: fused
+             and gather engines on the same prompts (the fused engine's
+             tokens fed to both): logits within a relative norm error of
+             1e-3, greedy tokens identical;
+             then a pool too small for all slots, once with swapping and
+             once without: a swap-out and a recompute, the same tokens.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -70,6 +92,12 @@ TRAIN_STEPS = 3
 MICROBATCHES = 2            # one video each: global batch 2, not 64
 STAGE1_N = 4096
 BOUNDS = {"none": 2e-5, "int8": 1e-3, "fp8": 1e-2}   # relative max error
+LM_PROMPTS = (8192, 3000, 1000, 200)    # lm-serve prompt lengths
+LM_NEW = 32                 # new tokens per request
+LM_MAX_LEN = 32768
+LM_CHUNK = 512
+LM_SLOTS = 4
+LM_CAPTURE = (2048, 1920, 1792, 1664)   # lm-kernel's short prefill
 BF16_TWO_ULPS = 2 ** -7
 
 
@@ -632,6 +660,415 @@ def phase_stage1():
     return pk
 
 
+def lm_engine(model, params, **overrides):
+    """A fused ServeEngine at the lm-serve geometry, params loaded."""
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    kw = dict(max_slots=LM_SLOTS, max_len=LM_MAX_LEN, prefill_chunk=LM_CHUNK,
+              paged_impl="fused")
+    kw.update(overrides)
+    eng = ServeEngine(model, EngineConfig(**kw), device=DEV)
+    eng.load(params)
+    return eng
+
+
+def _clone(x):
+    import torch
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def capture_layer0(model, params):
+    """Layer 0's inputs to the two paged kernels, cloned, as the engine
+    gives them: the decode call of the first step with all 4 slots
+    decoding, and the prefill call of the first chunk at offset >= 1024,
+    from a short 4-slot prefill at full width."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.serve.engine import make_mixed_requests
+    eng = lm_engine(model, params)
+    got = {}
+    want = {
+        "sla2_decode_fused": lambda a, k: sum(
+            s.decoding for s in eng._slots.values()) == LM_SLOTS,
+        "paged_flash_prefill": lambda a, k: int(k["offset"]) >= 2 * LM_CHUNK}
+    entry = A.fused_entry_fn
+
+    def capturing_entry(name):
+        fn = entry(name)
+
+        def run(*args, **kw):
+            if name not in got and want[name](args, kw):
+                got[name] = ([_clone(a) for a in args],
+                             {k: _clone(v) for k, v in kw.items()})
+            return fn(*args, **kw)
+        return run
+
+    for r in make_mixed_requests(model.cfg.vocab_size,
+                                 [(n, 24) for n in LM_CAPTURE],
+                                 seed=SEED + 20):
+        eng.submit(r)
+    A.fused_entry_fn = capturing_entry
+    try:
+        while len(got) < len(want):
+            eng.step()
+    finally:
+        A.fused_entry_fn = entry
+    torch.cuda.synchronize()
+    del eng
+    torch.cuda.empty_cache()
+    return got
+
+
+def decode_bound_ms(args):
+    """Least time of one decode call: the bytes it must move (the valid
+    routed K/V pages with their scales, h_tot / z_tot, q, the routing,
+    alpha, o) over the HBM rate; its operations are a few MFLOP."""
+    q, kp, _, phys, _, valid, _, _, h, z, alpha = args
+    b, hkv, n_rep, dh = q.shape
+    n_valid = int(valid.sum())
+    page = kp.shape[2] * dh * kp.element_size()
+    nbytes = (2 * n_valid * page + h.numel() * 4 + z.numel() * 4
+              + q.numel() * q.element_size() + 4 * phys.numel() * 4
+              + alpha.numel() * 4 + b * hkv * n_rep * dh * 4)
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def prefill_work(q, page_row, offset, block_k, n_rep, window, prefix_len):
+    """(operations, bytes) of one prefill call: 4 Dh per visible (query,
+    key) pair over every query head; q and the visible K/V pages read
+    once, o written once."""
+    from repro_torch.kernels.sla2_decode_paged import visible_pages
+    h, c, dh = q.shape
+    pairs = 0
+    for r in range(c):
+        pos = offset + r
+        lo = 0 if window is None else max(0, pos - window + 1)
+        seen = pos + 1 - lo
+        if prefix_len:
+            seen += max(0, min(prefix_len, lo))
+        pairs += seen
+    pages = len(visible_pages(offset, c, page_row.shape[0], block_k, window,
+                              prefix_len))
+    ops = 4 * dh * h * pairs
+    nbytes = (q.numel() * q.element_size() + h * c * dh * 4
+              + 2 * pages * (h // n_rep) * block_k * dh * 2)
+    return ops, nbytes
+
+
+def sdpa_ms(q, k_pages, v_pages, page_row, offset, n_rep):
+    """SDPA over the gathered contiguous K/V of the chunk's history with
+    the offset-causal mask (the gather itself is not timed)."""
+    import torch
+    h, c, dh = q.shape
+    n_kv = offset + c
+    n_pg = -(-n_kv // k_pages.shape[2])
+    rows = page_row[:n_pg].long()
+    kk, vv = (t[rows].transpose(0, 1).reshape(t.shape[1], -1, dh)[:, :n_kv]
+              for t in (k_pages, v_pages))
+    kk = torch.repeat_interleave(kk, n_rep, dim=0)[None].to(q.dtype)
+    vv = torch.repeat_interleave(vv, n_rep, dim=0)[None].to(q.dtype)
+    mask = (torch.arange(c, device=q.device)[:, None] + offset
+            >= torch.arange(n_kv, device=q.device)[None, :])
+    qq = q[None]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    return cuda_ms(lambda: fn(qq, kk, vv, attn_mask=mask), iters=10)
+
+
+def synthetic_pool(g, n_pages, hkv, bk, dh, kv_quant):
+    import torch
+    from repro_torch.kernels import ops
+    k, v = (torch.randn(n_pages, hkv, bk, dh, generator=g, device=DEV)
+            for _ in range(2))
+    if kv_quant == "none":
+        return k.bfloat16(), v.bfloat16(), None, None
+    (kc, ks), (vc, vs) = (ops.quantize_rows(t, kv_quant) for t in (k, v))
+    return kc, vc, ks, vs
+
+
+def phase_lm_kernel(model, params):
+    import itertools
+
+    import torch
+    from repro_torch.kernels import sla2_decode_paged as KP
+    cfg = model.cfg
+    bk, dh = cfg.block_k, cfg.head_dim
+    got = capture_layer0(model, params)
+    dargs, dkw = got["sla2_decode_fused"]
+    pargs, pkw = got["paged_flash_prefill"]
+    with torch.no_grad():
+        o = KP.sla2_decode_fused(*dargs, **dkw)
+        torch.cuda.synchronize()
+        po = KP.sla2_decode_fused_plain(*dargs, **dkw)
+        d_err, d_abs = rel_err(o, po), float((o - po).abs().max())
+        o = KP.paged_flash_prefill(*pargs, **pkw)
+        torch.cuda.synchronize()
+        po = KP.paged_flash_prefill_plain(*pargs, **pkw)
+        p_err, p_abs = rel_err(o, po), float((o - po).abs().max())
+    q = dargs[0]
+    log(f"[lm-kernel] layer-0 decode q{tuple(q.shape)} {q.dtype}, pool "
+        f"{tuple(dargs[1].shape)}, K_sel={dargs[3].shape[-1]}, valid "
+        f"entries {int(dargs[5].sum())}/{dargs[5].numel()}, complete "
+        f"{int(dargs[6].sum())}, t_new {dargs[7].tolist()}: rel max err "
+        f"{d_err:.3e} (bound 2e-5), max abs err {d_abs:.3e}")
+    log(f"[lm-kernel] layer-0 prefill q{tuple(pargs[0].shape)} offset "
+        f"{pkw['offset']} maxP {pargs[3].shape[0]}: rel max err {p_err:.3e} "
+        f"(bound 2e-5), max abs err {p_abs:.3e}")
+    if not (d_err < BOUNDS["none"] and p_err < BOUNDS["none"]):
+        raise AssertionError("a paged kernel disagrees with its plain "
+                             "version at the main shape")
+
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 21)
+    n_cases = 0
+    b, hkv, k_sel, n_pages = LM_SLOTS, cfg.num_kv_heads, dargs[3].shape[-1], 600
+    with torch.no_grad():
+        for quant, kvq, n_rep, w in itertools.product(
+                ("none", "int8", "fp8"), ("none", "int8", "fp8"), (1, 5),
+                (1, 4)):
+            kp, vp, ks, vs = synthetic_pool(g, n_pages, hkv, bk, dh, kvq)
+            rnd = lambda *shape: torch.rand(*shape, generator=g, device=DEV)
+            sq = torch.randn(b, hkv, w, n_rep, dh, generator=g,
+                             device=DEV).bfloat16()
+            ints = lambda lo, hi, shape: torch.randint(
+                lo, hi, shape, generator=g, device=DEV, dtype=torch.int32)
+            phys = ints(1, n_pages, (b, hkv, w, k_sel))
+            jlog = ints(0, 200, (b, hkv, w, k_sel))
+            valid = (rnd(b, hkv, w, k_sel) > 0.15).to(torch.int32)
+            comp = (rnd(b, hkv, w, k_sel) > 0.3).to(torch.int32) * valid
+            t_new = ints(150 * bk, 200 * bk, (b, w))       # ragged rows
+            h = rnd(b, hkv, w, dh, dh) * 100
+            z = rnd(b, hkv, w, dh) * 3000 + 500
+            alpha = torch.randn(b, hkv, n_rep, generator=g, device=DEV)
+            a = (sq, kp, vp, phys, jlog, valid, comp, t_new, h, z, alpha)
+            kw = dict(block_k=bk, quant_bits=quant, kv_quant=kvq,
+                      k_scale=ks, v_scale=vs)
+            so = KP.sla2_decode_verify(*a, **kw)
+            torch.cuda.synchronize()
+            e = rel_err(so, KP.sla2_decode_verify_plain(*a, **kw))
+            if not e < BOUNDS[quant]:
+                raise AssertionError(
+                    f"decode sweep quant={quant} kv_quant={kvq} n_rep="
+                    f"{n_rep} W={w}: rel err {e:.3e} > {BOUNDS[quant]:.0e}")
+            n_cases += 1
+        log(f"[lm-kernel] decode sweep: {n_cases} cases (quant_bits x "
+            f"kv_quant x n_rep 1/5 x W 1/4, ragged t_new, ~15% invalid "
+            f"entries, complete flags) within bounds")
+        n_pre = 0
+        c, max_p, n_rep = LM_CHUNK, LM_MAX_LEN // bk, cfg.num_heads // hkv
+        for off, window, prefix, kvq in itertools.product(
+                (0, 2 * c), (None, 256), (0, 48), ("none", "int8", "fp8")):
+            kp, vp, ks, vs = synthetic_pool(g, n_pages, hkv, bk, dh, kvq)
+            sq = torch.randn(cfg.num_heads, c, dh, generator=g,
+                             device=DEV).bfloat16()
+            row = torch.zeros(max_p, dtype=torch.int32, device=DEV)
+            used = -(-(off + c) // bk)
+            row[:used] = (torch.randperm(n_pages - 1, generator=g,
+                                         device=DEV)[:used] + 1).int()
+            kw = dict(offset=off, block_k=bk, n_rep=n_rep, window=window,
+                      prefix_len=prefix, kv_quant=kvq, k_scale=ks,
+                      v_scale=vs)
+            so = KP.paged_flash_prefill(sq, kp, vp, row, **kw)
+            torch.cuda.synchronize()
+            e = rel_err(so, KP.paged_flash_prefill_plain(sq, kp, vp, row,
+                                                         **kw))
+            if not e < BOUNDS["none"]:
+                raise AssertionError(
+                    f"prefill sweep offset={off} window={window} prefix="
+                    f"{prefix} kv_quant={kvq}: rel err {e:.3e} > 2e-5")
+            n_pre += 1
+        log(f"[lm-kernel] prefill sweep: {n_pre} cases (offset 0/1024 x "
+            f"window None/256 x prefix_len 0/48 x kv_quant) within 2e-5")
+
+        d_ms = cuda_ms(lambda: KP.sla2_decode_fused(*dargs, **dkw), iters=50)
+        d_plain = cuda_ms(lambda: KP.sla2_decode_fused_plain(*dargs, **dkw),
+                          iters=3, warmup=1)
+        d_bound = decode_bound_ms(dargs)
+        p_ms = cuda_ms(lambda: KP.paged_flash_prefill(*pargs, **pkw),
+                       iters=10)
+        p_plain = cuda_ms(lambda: KP.paged_flash_prefill_plain(*pargs, **pkw),
+                          iters=2, warmup=1)
+        ops_, nbytes = prefill_work(pargs[0], pargs[3], pkw["offset"], bk,
+                                    pkw["n_rep"], pkw["window"],
+                                    pkw["prefix_len"])
+        t_b16 = ops_ / PEAK_BF16_OPS * 1e3
+        t_f32 = ops_ / PEAK_F32_OPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        p_bound = max(t_b16, t_bytes)
+        p_by = "operations" if t_b16 >= t_bytes else "bytes"
+        p_lib = sdpa_ms(pargs[0], pargs[1], pargs[2], pargs[3],
+                        pkw["offset"], pkw["n_rep"])
+        # the last chunk of the 8192-token prompt, on the same pool
+        long_off = LM_PROMPTS[0] - c
+        lq = torch.randn(cfg.num_heads, c, dh, generator=g,
+                         device=DEV).bfloat16()
+        lrow = torch.zeros(max_p, dtype=torch.int32, device=DEV)
+        n_used = LM_PROMPTS[0] // bk
+        lrow[:n_used] = (torch.randperm(pargs[1].shape[0] - 1, generator=g,
+                                        device=DEV)[:n_used] + 1).int()
+        lkw = dict(pkw, offset=long_off)
+        l_ms = cuda_ms(lambda: KP.paged_flash_prefill(lq, pargs[1], pargs[2],
+                                                      lrow, **lkw), iters=5)
+        l_ops, _ = prefill_work(lq, lrow, long_off, bk, pkw["n_rep"], None, 0)
+    log(f"[lm-kernel] decode: kernel {d_ms:.4f} ms, plain {d_plain:.3f} ms, "
+        f"bound {d_bound:.4f} ms (bytes), {d_bound / d_ms:.1%} of bound; "
+        f"library: none")
+    log(f"[lm-kernel] prefill (offset {pkw['offset']}, C {c}): kernel "
+        f"{p_ms:.3f} ms, plain {p_plain:.3f} ms, bound {p_bound:.4f} ms "
+        f"({p_by}, bf16 tensor cores; {max(t_f32, t_bytes):.3f} ms on f32 "
+        f"CUDA cores), {p_bound / p_ms:.1%} of bound; SDPA over the gathered "
+        f"K/V {p_lib:.3f} ms")
+    log(f"[lm-kernel] prefill at offset {long_off}: kernel {l_ms:.3f} ms, "
+        f"bound {l_ops / PEAK_BF16_OPS * 1e3:.4f} ms (bf16 tensor cores; "
+        f"{l_ops / PEAK_F32_OPS * 1e3:.3f} ms on f32 CUDA cores)")
+    del got, dargs, pargs
+    torch.cuda.empty_cache()
+    return {"decode": (d_abs, d_ms, d_plain, d_bound),
+            "prefill": (p_abs, p_ms, p_plain, p_bound, p_by, t_f32, p_lib)}
+
+
+def phase_lm_serve(model, params):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import sla2_decode_paged as KP
+    from repro_torch.serve.engine import make_mixed_requests
+    cfg = model.cfg
+    eng = lm_engine(model, params)
+    reqs = make_mixed_requests(cfg.vocab_size,
+                               [(n, LM_NEW) for n in LM_PROMPTS], seed=SEED)
+    prefill_ms, decode_ms = [], {}
+
+    def timed(name, sink):
+        fn = getattr(eng, name)
+
+        def run():
+            n_dec = sum(s.decoding for s in eng._slots.values())
+            before = (eng.stats["prefill_chunks"], eng.stats["decode_steps"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if (eng.stats["prefill_chunks"], eng.stats["decode_steps"]) \
+                    != before:
+                sink(ms, n_dec)
+        setattr(eng, name, run)
+
+    timed("_prefill_step", lambda ms, n: prefill_ms.append(ms))
+    timed("_decode_step", lambda ms, n: decode_ms.setdefault(n, []).append(ms))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KP.sla2_decode_verify.launches = 0
+    KP.paged_flash_prefill.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs[:3]:
+        eng.submit(r)
+    while eng.stats["decode_steps"] == 0:
+        eng.step()
+    eng.submit(reqs[3])                        # joins after the first decode
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"sla2_decode_paged": KP.sla2_decode_verify.launches,
+                "paged_flash_prefill": KP.paged_flash_prefill.launches}
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    want = {"sla2_decode_paged": cfg.n_layers * st["decode_steps"],
+            "paged_flash_prefill": cfg.n_layers * st["prefill_chunks"]}
+    chunks = sum(-(-n // LM_CHUNK) for n in LM_PROMPTS)
+    per_slot = {n: (round(float(np.median(v)), 3), len(v))
+                for n, v in sorted(decode_ms.items())}
+    log(f"[lm-serve] {cfg.name} {cfg.n_layers} layers: {len(done)} requests "
+        f"in {st['engine_steps']} engine steps, {wall:.1f} s; "
+        f"{st['prefill_chunks']} prefill chunks, {st['decode_steps']} decode "
+        f"dispatches; launches {launches} (want {want})")
+    log(f"[lm-serve] ms per prefill chunk {[round(t, 1) for t in prefill_ms]}")
+    log(f"[lm-serve] ms per decode step by active slots (median, count): "
+        f"{per_slot}; peak memory {peak / 2**30:.2f} GiB")
+    log(f"[lm-serve] tokens: " + "; ".join(
+        f"{r.uid} (prompt {len(r.prompt)}): {r.output}"
+        for r in sorted(done, key=lambda r: r.uid)))
+    if sorted(r.uid for r in done) != [r.uid for r in reqs] or any(
+            len(r.output) != LM_NEW or min(r.output) < 0
+            or max(r.output) >= cfg.vocab_size for r in done):
+        raise AssertionError("not every request produced its tokens")
+    if launches != want or st["prefill_chunks"] != chunks \
+            or 0 in launches.values():
+        raise AssertionError("the LM serving path did not run each paged "
+                             "kernel once per layer and dispatch")
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": prefill_ms,
+            "decode_ms": per_slot, "peak": peak}
+
+
+def phase_lm_context():
+    import numpy as np
+    import torch
+    from repro_torch.configs.qwen3_14b import config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import make_mixed_requests
+    # f32 weights and pages: in bf16 the kernels' and the gather path's
+    # f32 sums round to different bf16 values now and then, and those
+    # flips, not the kernels, would set the logits error
+    model = build_model(config(n_layers=2, dtype="float32"))
+    params = model.init(SEED + 22, device=DEV)
+    work = [(2000, 16), (900, 16), (300, 16)]
+
+    def run(impl, feed=None, **kw):
+        """Serve ``work``; returns (tokens, logits and ids of the active
+        rows at every sampling point, all ids sampled, stats).  ``feed``
+        replaces the sampled ids by those of another run."""
+        eng = lm_engine(model, params, max_slots=3, max_len=4096,
+                        paged_impl=impl, page_dtype="float32", **kw)
+        seen, own, every = [], [], []
+        sample = eng._sample
+
+        def hooked(logits):
+            # rows of inactive slots read the trash page: compare the rest
+            rows = [0] if logits.shape[0] == 1 else [
+                s for s in range(logits.shape[0])
+                if s in eng._slots and eng._slots[s].decoding]
+            ids = sample(logits)
+            seen.append(logits[rows].float().clone())
+            own.append(ids[rows])
+            every.append(ids)
+            return feed.pop(0) if feed is not None else ids
+        eng._sample = hooked
+        for r in make_mixed_requests(model.cfg.vocab_size, work,
+                                     seed=SEED + 23):
+            eng.submit(r)
+        out = {r.uid: r.output for r in eng.run_to_completion()}
+        return out, seen, own, every, dict(eng.stats)
+
+    fused, f_logits, f_ids, f_every, _ = run("fused")
+    gather, g_logits, g_ids, _, _ = run("gather", feed=list(f_every))
+    rel = max(float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+              for a, b in zip(f_logits, g_logits))
+    same = len(f_ids) == len(g_ids) and all(
+        np.array_equal(a, b) for a, b in zip(f_ids, g_ids))
+    log(f"[lm-context] 2 layers, full width: fused vs gather over "
+        f"{len(f_logits)} sampling points: logits rel norm err {rel:.3e} "
+        f"(bound 1e-3), greedy tokens identical: {same}")
+    if not (rel < 1e-3 and same and len(f_logits) == len(g_logits)):
+        raise AssertionError("fused and gather LM engines disagree")
+    stats = {}
+    for name, kw in (("swap", {}), ("recompute", {"swap_pages": 0})):
+        out, _, _, _, st = run("fused", num_pages=40, **kw)
+        stats[name] = st
+        log(f"[lm-context] pool of 40 pages, {name}: preemptions "
+            f"{st['preemptions']}, swap-outs {st['swap_outs']}, recomputes "
+            f"{st['recomputes']}; tokens equal the unpreempted run: "
+            f"{out == fused}")
+        if out != fused:
+            raise AssertionError(f"preemption by {name} changed the tokens")
+    if not (stats["swap"]["swap_outs"] >= 1
+            and stats["recompute"]["recomputes"] >= 1):
+        raise AssertionError("the small pool forced no swap-out or no "
+                             "recompute")
+    del params
+    torch.cuda.empty_cache()
+    return rel
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -691,8 +1128,24 @@ def main() -> int:
     train = timed("train", phase_train)
     timed("train-context", phase_train_context)
     timed("stage1", phase_stage1)
+    dit_heads = model.cfg.num_heads
+    del model, reqs
+    torch.cuda.empty_cache()
 
-    ms, plain, bms, by = kern["timings"][model.cfg.num_heads]
+    from repro_torch.configs import qwen3_14b
+    lm_model = build_model(qwen3_14b.config())
+    t0 = time.perf_counter()
+    lm_params = lm_model.init(SEED, device=DEV)
+    n_params = sum(p.numel() for p in lm_params.parameters())
+    log(f"[model] {lm_model.cfg.name}: {n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    lm_kern = timed("lm-kernel", phase_lm_kernel, lm_model, lm_params)
+    lm_serve = timed("lm-serve", phase_lm_serve, lm_model, lm_params)
+    del lm_params
+    torch.cuda.empty_cache()
+    timed("lm-context", phase_lm_context)
+
+    ms, plain, bms, by = kern["timings"][dit_heads]
     no_library = ("no single PyTorch call computes a routed block-sparse "
                   "attention backward; dense SDPA's backward is another "
                   "function")
@@ -723,6 +1176,33 @@ def main() -> int:
             "bound_by": by16, "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
             "bound_ms_f32_cuda_cores": f32, "library_ms": None,
             "library_note": no_library})
+    d_abs, d_ms, d_plain, d_bound = lm_kern["decode"]
+    rows.append({
+        "name": "sla2_decode_paged", "route": "cuda",
+        "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
+        "replaces": "src/repro/kernels/sla2_decode_paged.py:298",
+        "launches": lm_serve["launches"]["sla2_decode_paged"],
+        "launches_by_path": {
+            "lm_serve": lm_serve["launches"]["sla2_decode_paged"]},
+        "max_abs_err": d_abs, "ms": d_ms, "plain_ms": d_plain,
+        "bound_ms": d_bound, "bound_by": "bytes", "library_ms": None,
+        "library_note": "no PyTorch call computes routed paged attention "
+                        "with the linear complement and the alpha combine"})
+    p_abs, p_ms, p_plain, p_bound, p_by, p_f32, p_lib = lm_kern["prefill"]
+    rows.append({
+        "name": "paged_flash_prefill", "route": "cuda",
+        "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
+        "replaces": "src/repro/kernels/sla2_decode_paged.py:797",
+        "launches": lm_serve["launches"]["paged_flash_prefill"],
+        "launches_by_path": {
+            "lm_serve": lm_serve["launches"]["paged_flash_prefill"]},
+        "max_abs_err": p_abs, "ms": p_ms, "plain_ms": p_plain,
+        "bound_ms": p_bound, "bound_by": p_by,
+        "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
+        "bound_ms_f32_cuda_cores": p_f32, "library_ms": p_lib,
+        "library_note": "scaled_dot_product_attention over the K/V pages "
+                        "gathered into a contiguous copy (gather not timed) "
+                        "with the offset-causal mask"})
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Architecture registry of the port.  Only the video DiT is ported so far.
+"""Architecture registry of the port: the video DiT and qwen3-14b so far.
 
 Each module exposes ``config(**overrides)`` (full size) and
 ``smoke_config(**overrides)`` (reduced, for CPU tests).
@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_NAMES = ["wan_dit_1_3b"]
+ARCH_NAMES = ["wan_dit_1_3b", "qwen3_14b"]
 
 
 def _module(name: str):

@@ -1,4 +1,6 @@
-"""Carry a JAX DiT param pytree across to the port.
+"""Carry a JAX param pytree across to the port: the DiT
+(``dit_params_from_numpy``, ``train_state_from_numpy``) and the LM
+(``lm_params_from_numpy``).
 
 The input is the reference's params as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), with the per-block tensors stacked
@@ -21,6 +23,7 @@ from repro_torch import resolve_device
 from repro_torch.core import sla2 as S
 from repro_torch.core.router import RouterParams
 from repro_torch.models import dit as D
+from repro_torch.models import transformer as T
 
 
 def _set(dst: torch.Tensor, src, transpose: bool = False) -> None:
@@ -123,3 +126,43 @@ def train_state_from_numpy(state: dict, cfg: D.DiTConfig,
     if "ef" in state:
         out["ef"] = _named_tensors(state["ef"], cfg, "bfloat16", dev)
     return out
+
+
+def lm_params_from_numpy(tree: dict, cfg: T.ModelConfig,
+                         device="cuda") -> T.LMParams:
+    """Build ``LMParams`` on ``device`` holding the reference LM's values.
+
+    The reference stacks its layers in ``groups``: every leaf of
+    ``groups["l<k>"]`` has a leading axis of ``n_groups``, and layer
+    ``g * len(layer_kinds) + k`` is entry g of sub-key ``l<k>``.  Matrices
+    applied as ``x @ w`` (in, out) are transposed into ``nn.Linear``
+    weights (out, in); ``lm_head`` (d_model, vocab) likewise."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = T.init_model(g, cfg, dev)
+    n_kinds = len(cfg.layer_kinds)
+    with torch.no_grad():
+        _set(params.embed, tree["embed"]["table"])
+        _set(params.final_norm.scale, tree["final_norm"]["scale"])
+        if params.lm_head is not None:
+            _linear(params.lm_head, tree["lm_head"])
+        for li, lp in enumerate(params.layers):
+            grp, sub = divmod(li, n_kinds)
+            at = lambda x: np.asarray(x)[grp]
+            lt = tree["groups"][f"l{sub}"]
+            _set(lp.ln1.scale, at(lt["ln1"]["scale"]))
+            _set(lp.ln2.scale, at(lt["ln2"]["scale"]))
+            at_ = lt["attn"]
+            for name in ("wq", "wk", "wv", "wo"):
+                _linear(getattr(lp.attn, name), at(at_[name]))
+            for name in ("q_norm", "k_norm"):
+                if getattr(lp.attn, name) is not None:
+                    _set(getattr(lp.attn, name).scale, at(at_[name]["scale"]))
+            _copy_sla2(lp.attn.sla2, {
+                "alpha_logit": at(at_["sla2"]["alpha_logit"]),
+                "router": {k: at(w) for k, w in
+                           (at_["sla2"].get("router") or {}).items()}})
+            for name in ("w_up", "w_down", "w_gate"):
+                _linear(getattr(lp.mlp, name), at(lt["mlp"][name]))
+    return params

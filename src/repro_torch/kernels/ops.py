@@ -55,6 +55,48 @@ def qdot(a, a_s, b, b_s, *, transpose_b: bool):
     return out * (a_s * b_s)
 
 
+# ---------------------------------------------------------------------------
+# Page-pool storage quantisation (the serving ``kv_quant`` knob)
+# ---------------------------------------------------------------------------
+# The paged K/V pool may hold int8 or fp8-e4m3 codes with one f32 scale per
+# token row (page, kv head, row).  A row is quantised once, when it is
+# written, and never again, so swapping pages out and back is exact.  The
+# gather reference and the CUDA kernels dequantise with the same formula,
+# ``codes * scale``.
+
+KV_QUANT_MODES = ("none", "int8", "fp8")
+
+
+def kv_pool_dtype(kv_quant: str) -> torch.dtype:
+    """Storage dtype of the K/V (and SLA2 pooled-key) page arrays."""
+    if kv_quant == "int8":
+        return torch.int8
+    if kv_quant == "fp8":
+        return torch.float8_e4m3fn
+    raise ValueError(kv_quant)
+
+
+def quantize_rows(x: torch.Tensor, kv_quant: str):
+    """Per-row symmetric quantisation over the last axis; returns (codes,
+    scale) with ``scale.shape == x.shape[:-1]`` in f32.  The scale is a
+    true division (``true_div``), as the reference computes it."""
+    x = x.to(torch.float32)
+    ax = torch.amax(torch.abs(x), dim=-1)
+    if kv_quant == "int8":
+        s = torch.clamp(true_div(ax, INT8_MAX), min=1e-8)
+        q = torch.clamp(torch.round(x / s[..., None]), -INT8_MAX, INT8_MAX)
+        return q.to(torch.int8), s
+    if kv_quant == "fp8":
+        s = torch.clamp(true_div(ax, FP8_MAX), min=1e-12)
+        return (x / s[..., None]).to(torch.float8_e4m3fn), s
+    raise ValueError(kv_quant)
+
+
+def dequant_rows(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_rows``: ``codes * scale`` in f32."""
+    return codes.to(torch.float32) * scale[..., None].to(torch.float32)
+
+
 class _SparseAttention(torch.autograd.Function):
     """Forward: the sparse-branch kernel.  Backward: ``sparse_flash_bwd``
     on the saved (q, k_used, v, idx, valid, o, lse).  The gradient of

@@ -1,0 +1,454 @@
+"""Paged-attention kernels of LM serving: SLA2 decode (and its multi-row
+verify window) and chunked-prefill flash attention over the page pool.
+
+The K/V cache lives in a pool of physical pages ``(P, Hkv, bk, Dh)``; a
+host-side page table maps each slot's logical blocks to pages (page 0 is
+a trash page for masked writes).  The kernels read pages where they lie.
+
+``sla2_decode_verify`` (and ``sla2_decode_fused``, its W = 1 case) is the
+SLA2 decode step over the pages the router selected: an online softmax
+over the routed pages, the linear complement (``h_tot``/``z_tot`` minus
+the selected complete blocks) from the same resident tiles, and the
+sigmoid-alpha combine.  Optional QAT tiles (``quant_bits``) and low-bit
+pools (``kv_quant``, codes with per-row f32 scales).  On a CUDA tensor it
+launches ``sla2_decode`` in ``csrc/sla2_decode_paged.cu``; on a CPU tensor
+it runs ``sla2_decode_verify_plain``, the PyTorch transcription of the
+same loop.  ``sla2_decode_verify.launches`` counts kernel launches of
+both entries.
+
+``paged_flash_prefill`` is exact causal flash attention of one slot's
+prefill chunk over its paged history, the GQA group stacked into one
+query tile per KV head, with sliding-window and prefix-LM masks.  On a
+CUDA tensor it launches ``paged_prefill`` from the same source (counted
+in ``paged_flash_prefill.launches``); on a CPU tensor it runs
+``paged_flash_prefill_plain``.
+
+There is no fallback from one to the other.  The kernels take ``block_k``
+a multiple of 16 up to 64, ``Dh`` 64 or 128, bf16 or f32 pools or int8 /
+e4m3 codes, and up to 16 query heads per KV head; anything else raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.attention import phi
+from repro_torch.kernels.ops import INT8_MAX, NEG_INF, qdot, quantize_tile
+
+QUANT_CODES = {"none": 0, "int8": 1, "fp8": 2}
+_POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
+_Q_DTYPES = (torch.float32, torch.bfloat16)
+_KV_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+_HALF_NEG = NEG_INF * 0.5
+
+
+def _check_pool(k_pages, v_pages, kv_quant, k_scale, v_scale):
+    if kv_quant not in QUANT_CODES:
+        raise ValueError(f"kv_quant must be one of {tuple(QUANT_CODES)}")
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("k_pages and v_pages must be (P, Hkv, bk, Dh) of "
+                         "one shape")
+    if kv_quant == "none":
+        if k_pages.dtype not in _Q_DTYPES or v_pages.dtype != k_pages.dtype:
+            raise ValueError(f"an unquantised pool must be one dtype of "
+                             f"{_Q_DTYPES}")
+        return
+    want = _KV_DTYPE[kv_quant]
+    if k_pages.dtype != want or v_pages.dtype != want:
+        raise ValueError(f"kv_quant={kv_quant!r} needs {want} pages")
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"kv_quant={kv_quant!r} needs k_scale and v_scale")
+    if (tuple(k_scale.shape) != tuple(k_pages.shape[:3])
+            or k_scale.shape != v_scale.shape
+            or k_scale.dtype != torch.float32
+            or v_scale.dtype != torch.float32):
+        raise ValueError("k_scale/v_scale must be f32 (P, Hkv, bk)")
+
+
+def _dequant(tile, scale):
+    tile = tile.to(torch.float32)
+    return tile if scale is None else tile * scale[..., None]
+
+
+def _tree_sum(p):
+    """Sum over the last axis (at most 64) in the kernel's order: keys kk
+    and kk + 32 first, then a butterfly over the 32 lanes of a warp
+    (halves of 16, 8, 4, 2, 1)."""
+    n = p.shape[-1]
+    if n < 64:
+        p = torch.nn.functional.pad(p, (0, 64 - n))
+    v = p[..., :32] + p[..., 32:]
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# SLA2 paged decode / verify
+# ---------------------------------------------------------------------------
+
+def sla2_decode_verify_plain(q, k_pages, v_pages, phys, jlog, valid,
+                             complete, t_new, h_tot, z_tot, alpha, *,
+                             block_k: int, quant_bits: str = "none",
+                             kv_quant: str = "none", k_scale=None,
+                             v_scale=None):
+    """Plain PyTorch version of the decode kernel, vectorised over
+    (B, Hkv, W): the same ascending loop over the K_sel routed entries.
+    Shapes as ``sla2_decode_verify``; returns o (B, Hkv, W, n_rep, Dh)
+    f32."""
+    b, hkv, wdw, n_rep, dh = q.shape
+    k_sel = phys.shape[-1]
+    dev = q.device
+    sm_scale = 1.0 / (dh ** 0.5)
+    qf32 = q.to(torch.float32)
+    qf = phi(qf32)
+    if quant_bits != "none":
+        q_c, q_s = quantize_tile(qf32, quant_bits)
+    h_ix = torch.arange(hkv, device=dev)[None, :, None]
+    t = t_new.to(torch.int64)[:, None, :, None]              # (B, 1, W, 1)
+    shape = (b, hkv, wdw, n_rep)
+    acc = torch.zeros(*shape, dh, device=dev)
+    lnum = torch.zeros(*shape, dh, device=dev)
+    m_i = torch.full(shape, NEG_INF, device=dev)
+    l_i = torch.zeros(shape, device=dev)
+    lden = torch.zeros(shape, device=dev)
+    offs = torch.arange(block_k, device=dev)
+    for jj in range(k_sel):
+        ph = phys[..., jj].long()                             # (B, Hkv, W)
+        ok = (valid[..., jj] == 1)[..., None]
+        k = _dequant(k_pages[ph, h_ix],
+                     None if k_scale is None else k_scale[ph, h_ix])
+        v = _dequant(v_pages[ph, h_ix],
+                     None if v_scale is None else v_scale[ph, h_ix])
+        if quant_bits == "none":
+            s = torch.matmul(qf32, k.transpose(-1, -2)) * sm_scale
+        else:
+            k_c, k_s = quantize_tile(k, quant_bits)
+            s = qdot(q_c, q_s, k_c, k_s, transpose_b=True) * sm_scale
+        cols = jlog[..., jj].long()[..., None] * block_k + offs
+        s = torch.where((cols < t)[..., None, :], s, NEG_INF)
+        m_new = torch.maximum(m_i, torch.amax(s, dim=-1))
+        m_safe = torch.where(m_new > _HALF_NEG, m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(s > _HALF_NEG, p, 0.0)
+        corr = torch.exp(torch.where(m_i > _HALF_NEG, m_i, m_safe) - m_safe)
+        l_new = l_i * corr + _tree_sum(p)
+        if quant_bits == "none":
+            o_tmp = torch.matmul(p, v)
+        elif quant_bits == "int8":
+            p_c = torch.round(p * INT8_MAX)
+            v_c, v_s = quantize_tile(v, "int8")
+            o_tmp = qdot(p_c, 1.0 / INT8_MAX, v_c, v_s, transpose_b=False)
+        else:
+            p_c, p_s = quantize_tile(p, "fp8")
+            v_c, v_s = quantize_tile(v, "fp8")
+            o_tmp = qdot(p_c, p_s, v_c, v_s, transpose_b=False)
+        acc = torch.where(ok[..., None], acc * corr[..., None] + o_tmp, acc)
+        m_i = torch.where(ok, m_new, m_i)
+        l_i = torch.where(ok, l_new, l_i)
+        # linear-branch correction from the same tiles, f32 always
+        sub = ok & (complete[..., jj] == 1)[..., None]
+        ls = torch.matmul(qf, phi(k).transpose(-1, -2))       # (.., n_rep, bk)
+        lnum = torch.where(sub[..., None], lnum + torch.matmul(ls, v), lnum)
+        lden = torch.where(sub, lden + _tree_sum(ls), lden)
+    l_safe = torch.clamp(l_i, min=1e-20)
+    o_s = acc / l_safe[..., None]
+    den_tot = (qf * z_tot[..., None, :]).sum(dim=-1)
+    num = torch.matmul(qf, h_tot) - lnum
+    den = den_tot - lden
+    den = torch.where(den > 1e-4 * den_tot + 1e-12, den, 0.0)
+    o_l = torch.where(den[..., None] > 0,
+                      num / torch.clamp(den[..., None], min=1e-12), 0.0)
+    a = torch.sigmoid(alpha.to(torch.float32))[:, :, None, :, None]
+    a_eff = torch.where(den[..., None] > 0, a, 1.0)
+    return a_eff * o_s + (1.0 - a_eff) * o_l
+
+
+def sla2_decode_fused_plain(q, k_pages, v_pages, phys, jlog, valid,
+                            complete, t_new, h_tot, z_tot, alpha, **kw):
+    """``sla2_decode_verify_plain`` at W = 1 (shapes of
+    ``sla2_decode_fused``)."""
+    return sla2_decode_verify_plain(
+        q[:, :, None], k_pages, v_pages, phys[:, :, None], jlog[:, :, None],
+        valid[:, :, None], complete[:, :, None], t_new[:, None],
+        h_tot[:, :, None], z_tot[:, :, None], alpha, **kw)[:, :, 0]
+
+
+def _check_decode(q, k_pages, v_pages, phys, jlog, valid, complete, t_new,
+                  h_tot, z_tot, alpha, block_k, quant_bits, kv_quant,
+                  k_scale, v_scale):
+    if quant_bits not in QUANT_CODES:
+        raise ValueError(f"quant_bits must be one of {tuple(QUANT_CODES)}")
+    _check_pool(k_pages, v_pages, kv_quant, k_scale, v_scale)
+    if q.dim() != 5 or q.dtype not in _Q_DTYPES:
+        raise ValueError("q must be (B, Hkv, W, n_rep, Dh) in f32 or bf16")
+    b, hkv, wdw, n_rep, dh = q.shape
+    if k_pages.shape[1] != hkv or k_pages.shape[2] != block_k \
+            or k_pages.shape[3] != dh:
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)} and block_k {block_k}")
+    lead = (b, hkv, wdw)
+    for name, t in (("phys", phys), ("jlog", jlog), ("valid", valid),
+                    ("complete", complete)):
+        if t.dim() != 4 or tuple(t.shape[:3]) != lead \
+                or t.shape != phys.shape or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 (B, Hkv, W, K_sel)")
+    if tuple(t_new.shape) != (b, wdw) or t_new.dtype != torch.int32:
+        raise ValueError("t_new must be int32 (B, W)")
+    if tuple(h_tot.shape) != lead + (dh, dh) \
+            or tuple(z_tot.shape) != lead + (dh,) \
+            or tuple(alpha.shape) != (b, hkv, n_rep):
+        raise ValueError("h_tot (B, Hkv, W, Dh, Dh), z_tot (B, Hkv, W, Dh) "
+                         "and alpha (B, Hkv, n_rep) do not fit q")
+    for t in (h_tot, z_tot, alpha):
+        if t.dtype != torch.float32:
+            raise ValueError("h_tot, z_tot and alpha must be f32")
+    tensors = [q, k_pages, v_pages, phys, jlog, valid, complete, t_new,
+               h_tot, z_tot, alpha] + [t for t in (k_scale, v_scale)
+                                       if t is not None]
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devs}")
+
+
+def sla2_decode_verify(q, k_pages, v_pages, phys, jlog, valid, complete,
+                       t_new, h_tot, z_tot, alpha, *, block_k: int,
+                       quant_bits: str = "none", kv_quant: str = "none",
+                       k_scale=None, v_scale=None):
+    """SLA2 paged decode over a window of W query rows per slot.
+
+    q        (B, Hkv, W, n_rep, Dh) f32/bf16, queries grouped by KV head
+    k_pages  (P, Hkv, bk, Dh) page pool (f32/bf16, or int8/e4m3 codes with
+             k_scale/v_scale (P, Hkv, bk) f32 when ``kv_quant`` is set)
+    phys     (B, Hkv, W, K_sel) int32 routed physical pages (0 = invalid)
+    jlog     (B, Hkv, W, K_sel) int32 routed logical blocks (positions)
+    valid    (B, Hkv, W, K_sel) int32 {0, 1}; invalid entries are skipped
+    complete (B, Hkv, W, K_sel) int32 {0, 1}: the block is inside h_tot
+    t_new    (B, W) int32 tokens visible to each row, its own included
+    h_tot    (B, Hkv, W, Dh, Dh), z_tot (B, Hkv, W, Dh) f32 linear totals
+    alpha    (B, Hkv, n_rep) f32 alpha logits
+    returns  o (B, Hkv, W, n_rep, Dh) f32, the combined output."""
+    _check_decode(q, k_pages, v_pages, phys, jlog, valid, complete, t_new,
+                  h_tot, z_tot, alpha, block_k, quant_bits, kv_quant,
+                  k_scale, v_scale)
+    kw = dict(block_k=block_k, quant_bits=quant_bits, kv_quant=kv_quant,
+              k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "cpu":
+        return sla2_decode_verify_plain(q, k_pages, v_pages, phys, jlog,
+                                        valid, complete, t_new, h_tot,
+                                        z_tot, alpha, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch_decode(q, k_pages, v_pages, phys, jlog, valid, complete,
+                          t_new, h_tot, z_tot, alpha, **kw)
+
+
+sla2_decode_verify.launches = 0
+
+
+def sla2_decode_fused(q, k_pages, v_pages, phys, jlog, valid, complete,
+                      t_new, h_tot, z_tot, alpha, **kw):
+    """Single-token SLA2 paged decode: ``sla2_decode_verify`` at W = 1.
+    q (B, Hkv, n_rep, Dh); phys/jlog/valid/complete (B, Hkv, K_sel);
+    t_new (B,); h_tot (B, Hkv, Dh, Dh); z_tot (B, Hkv, Dh); alpha
+    (B, Hkv, n_rep).  Returns o (B, Hkv, n_rep, Dh) f32."""
+    return sla2_decode_verify(
+        q[:, :, None], k_pages, v_pages, phys[:, :, None], jlog[:, :, None],
+        valid[:, :, None], complete[:, :, None], t_new[:, None].contiguous(),
+        h_tot[:, :, None], z_tot[:, :, None], alpha, **kw)[:, :, 0]
+
+
+def _kernel_shape_check(name, dh, block_k, n_rep):
+    if not (dh in (64, 128) and block_k % 16 == 0 and 16 <= block_k <= 64
+            and 1 <= n_rep <= 16):
+        raise ValueError(
+            f"{name} kernel takes Dh in (64, 128), block_k a multiple of 16 "
+            f"up to 64 and n_rep <= 16; got Dh={dh}, block_k={block_k}, "
+            f"n_rep={n_rep}")
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_decode(q, k_pages, v_pages, phys, jlog, valid, complete, t_new,
+                   h_tot, z_tot, alpha, *, block_k, quant_bits, kv_quant,
+                   k_scale, v_scale):
+    from repro_torch.kernels.build import load_library
+    b, hkv, wdw, n_rep, dh = q.shape
+    _kernel_shape_check("sla2_decode", dh, block_k, n_rep)
+    args = [t.contiguous() for t in (q, phys, jlog, valid, complete, t_new,
+                                     h_tot, z_tot, alpha)]
+    for t in (k_pages, v_pages, k_scale, v_scale):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("sla2_decode kernel needs contiguous pools")
+    q, phys, jlog, valid, complete, t_new, h_tot, z_tot, alpha = args
+    o = torch.empty(b, hkv, wdw, n_rep, dh, device=q.device,
+                    dtype=torch.float32)
+    fn = load_library("sla2_decode_paged").sla2_decode
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 _ptr(k_scale), _ptr(v_scale), phys.data_ptr(),
+                 jlog.data_ptr(), valid.data_ptr(), complete.data_ptr(),
+                 t_new.data_ptr(), h_tot.data_ptr(), z_tot.data_ptr(),
+                 alpha.data_ptr(), o.data_ptr(), b, wdw, hkv, n_rep, dh,
+                 block_k, phys.shape[-1], QUANT_CODES[quant_bits],
+                 int(q.dtype == torch.bfloat16), _POOL_CODES[k_pages.dtype],
+                 k_pages.shape[0], 1.0 / (dh ** 0.5), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"sla2_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    sla2_decode_verify.launches += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Paged chunked-prefill flash attention
+# ---------------------------------------------------------------------------
+
+def visible_pages(offset: int, chunk: int, max_p: int, block_k: int,
+                  window=None, prefix_len: int = 0) -> list:
+    """Logical pages any query of the chunk at [offset, offset + chunk) can
+    see: below the chunk's end, and with a sliding window not wholly below
+    the first query's window start unless the prefix keeps them live."""
+    out = []
+    for p in range(max_p):
+        if p * block_k >= offset + chunk:
+            break
+        if (window is not None and (p + 1) * block_k <= offset - window + 1
+                and not p * block_k < prefix_len):
+            continue
+        out.append(p)
+    return out
+
+
+def paged_flash_prefill_plain(q, k_pages, v_pages, page_row, *, offset: int,
+                              block_k: int, n_rep: int, window=None,
+                              prefix_len: int = 0, kv_quant: str = "none",
+                              k_scale=None, v_scale=None):
+    """Plain PyTorch version of the prefill kernel: the GQA group stacked
+    into one (n_rep * C, Dh) query tile per KV head, an ascending online
+    softmax over the visible pages.  Returns o (H, C, Dh) f32."""
+    h, c, dh = q.shape
+    hkv = h // n_rep
+    dev = q.device
+    sm_scale = 1.0 / (dh ** 0.5)
+    qg = q.to(torch.float32).reshape(hkv, n_rep * c, dh)
+    rows = (offset + torch.arange(n_rep * c, device=dev) % c)[:, None]
+    acc = torch.zeros(hkv, n_rep * c, dh, device=dev)
+    m_i = torch.full((hkv, n_rep * c), NEG_INF, device=dev)
+    l_i = torch.zeros(hkv, n_rep * c, device=dev)
+    offs = torch.arange(block_k, device=dev)
+    for p in visible_pages(offset, c, page_row.shape[0], block_k, window,
+                           prefix_len):
+        ph = page_row[p:p + 1].long()
+        k = _dequant(k_pages[ph][0],
+                     None if k_scale is None else k_scale[ph][0])
+        v = _dequant(v_pages[ph][0],
+                     None if v_scale is None else v_scale[ph][0])
+        s = torch.matmul(qg, k.transpose(-1, -2)) * sm_scale
+        cols = (p * block_k + offs)[None, :]
+        vis = rows >= cols
+        if window is not None:
+            vis = vis & (cols >= rows - window + 1)
+        if prefix_len:
+            vis = vis | (cols < prefix_len)
+        s = torch.where(vis, s, NEG_INF)
+        m_new = torch.maximum(m_i, torch.amax(s, dim=-1))
+        m_safe = torch.where(m_new > _HALF_NEG, m_new, 0.0)
+        pr = torch.exp(s - m_safe[..., None])
+        pr = torch.where(s > _HALF_NEG, pr, 0.0)
+        corr = torch.exp(torch.where(m_i > _HALF_NEG, m_i, m_safe) - m_safe)
+        l_i = l_i * corr + pr.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(pr, v)
+        m_i = m_new
+    l_safe = torch.clamp(l_i, min=1e-20)
+    return (acc / l_safe[..., None]).reshape(h, c, dh)
+
+
+def paged_flash_prefill(q, k_pages, v_pages, page_row, *, offset,
+                        block_k: int, n_rep: int, window=None,
+                        prefix_len: int = 0, kv_quant: str = "none",
+                        k_scale=None, v_scale=None):
+    """Causal flash attention of one slot's prefill chunk over its paged
+    history.
+
+    q        (H, C, Dh) f32/bf16, the chunk's queries (all query heads)
+    k_pages  (P, Hkv, bk, Dh) page pool, Hkv = H // n_rep (codes with
+             per-row scales under ``kv_quant``)
+    page_row (maxP,) int32, the slot's page-table row
+    offset   tokens of the slot already cached (a multiple of block_k);
+             the chunk's queries sit at [offset, offset + C)
+    window   sliding-window size or None; prefix_len prefix-LM tokens
+    returns  o (H, C, Dh) f32.  Rows past the chunk's valid tokens see
+             whatever the slot's pages hold; callers discard them."""
+    offset = int(offset)
+    _check_pool(k_pages, v_pages, kv_quant, k_scale, v_scale)
+    if q.dim() != 3 or q.dtype not in _Q_DTYPES:
+        raise ValueError("q must be (H, C, Dh) in f32 or bf16")
+    h, c, dh = q.shape
+    if h % n_rep or k_pages.shape[1] != h // n_rep \
+            or k_pages.shape[2] != block_k or k_pages.shape[3] != dh:
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)}, n_rep {n_rep}, block_k "
+                         f"{block_k}")
+    if page_row.dim() != 1 or page_row.dtype != torch.int32:
+        raise ValueError("page_row must be int32 (maxP,)")
+    if offset % block_k:
+        raise ValueError(f"offset {offset} is not a multiple of block_k "
+                         f"{block_k}")
+    devs = {t.device for t in (q, k_pages, v_pages, page_row)}
+    if len(devs) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devs}")
+    kw = dict(offset=offset, block_k=block_k, n_rep=n_rep, window=window,
+              prefix_len=prefix_len, kv_quant=kv_quant, k_scale=k_scale,
+              v_scale=v_scale)
+    if q.device.type == "cpu":
+        return paged_flash_prefill_plain(q, k_pages, v_pages, page_row, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch_prefill(q, k_pages, v_pages, page_row, **kw)
+
+
+paged_flash_prefill.launches = 0
+
+
+def _launch_prefill(q, k_pages, v_pages, page_row, *, offset, block_k, n_rep,
+                    window, prefix_len, kv_quant, k_scale, v_scale):
+    from repro_torch.kernels.build import load_library
+    h, c, dh = q.shape
+    _kernel_shape_check("paged_prefill", dh, block_k, n_rep)
+    q, page_row = q.contiguous(), page_row.contiguous()
+    for t in (k_pages, v_pages, k_scale, v_scale):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("paged_prefill kernel needs contiguous pools")
+    o = torch.empty(h, c, dh, device=q.device, dtype=torch.float32)
+    fn = load_library("sla2_decode_paged").paged_prefill
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 _ptr(k_scale), _ptr(v_scale), page_row.data_ptr(),
+                 o.data_ptr(), h, c, n_rep, dh, block_k, page_row.shape[0],
+                 offset, -1 if window is None else int(window),
+                 int(prefix_len), int(q.dtype == torch.bfloat16),
+                 _POOL_CODES[k_pages.dtype], k_pages.shape[0],
+                 k_pages.shape[1], 1.0 / (dh ** 0.5), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"paged_prefill kernel launch failed: CUDA error "
+                           f"{err}")
+    paged_flash_prefill.launches += 1
+    return o

@@ -1,11 +1,17 @@
 """Model handle: ``build_model(cfg)`` returns a ``Model`` with the surface
-the diffusion engine uses.  Only the DiT is ported so far.
+the engines use: the video DiT (diffusion serving and training) and the
+dense decoder-only LM (paged serving).
 
-    model.init(seed, device="cuda")             -> params (DiTParams)
-    model.loss(params, batch)                   -> (loss, metrics)
-    model.denoise(params, batch, caches)        -> (latents, caches)
-    model.precompute_text_kv(params, text)      -> (k, v) per layer
-    model.precompute_step_mods(params, t)       -> modulation tables
+    model.init(seed, device="cuda")             -> params
+    model.loss(params, batch)                   -> (loss, metrics)      DiT
+    model.denoise(params, batch, caches)        -> (latents, caches)    DiT
+    model.precompute_text_kv(params, text)      -> (k, v) per layer     DiT
+    model.precompute_step_mods(params, t)       -> modulation tables    DiT
+    model.init_paged_caches(batch, num_pages)   -> page pools           LM
+    model.prefill_chunk(params, batch, caches)  -> (logits, caches)     LM
+    model.decode_paged(params, batch, caches)   -> (logits, caches)     LM
+    model.swap_out(caches, page_row, slot)      -> slot state           LM
+    model.swap_in(caches, page_row, slot, st)   -> caches               LM
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import dit as D
+from repro_torch.models import transformer as T
 
 
 @dataclasses.dataclass
@@ -23,29 +30,48 @@ class Model:
     """The per-architecture handle ``build_model`` returns: config plus
     callables.  Optional fields are None where the architecture lacks
     that path."""
-    kind: str                     # dit
+    kind: str                     # dit | lm
     cfg: Any
     init: Callable
     loss: Optional[Callable] = None
     denoise: Optional[Callable] = None
     precompute_text_kv: Optional[Callable] = None
     precompute_step_mods: Optional[Callable] = None
+    # paged LM serving (serve/engine.ServeEngine)
+    init_paged_caches: Optional[Callable] = None
+    prefill_chunk: Optional[Callable] = None
+    decode_paged: Optional[Callable] = None
+    swap_out: Optional[Callable] = None
+    swap_in: Optional[Callable] = None
+    has_slot_state: bool = False
+    # not ported yet (ROADMAP): the prefix cache and speculative decoding
+    extract_totals: Optional[Callable] = None
+    insert_totals: Optional[Callable] = None
+    copy_page: Optional[Callable] = None
+    decode_verify: Optional[Callable] = None
+    commit_window: Optional[Callable] = None
+    draft_init: Optional[Callable] = None
+    draft_step: Optional[Callable] = None
 
     def with_overrides(self, **overrides) -> "Model":
         """Rebuild this model with config fields replaced, e.g.
-        ``model.with_overrides(sla2_impl='gather')``."""
+        ``model.with_overrides(sla2_impl='gather')`` or, for the LM,
+        ``paged_impl``, ``decode_quant_bits`` and ``kv_quant``."""
         return build_model(dataclasses.replace(self.cfg, **overrides))
+
+
+def _generator(seed, dev) -> torch.Generator:
+    if isinstance(seed, torch.Generator):
+        return seed
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    return g
 
 
 def _dit_model(cfg: D.DiTConfig) -> Model:
     def init(seed, device="cuda"):
         dev = resolve_device(device)
-        if isinstance(seed, torch.Generator):
-            g = seed
-        else:
-            g = torch.Generator(device=dev)
-            g.manual_seed(int(seed))
-        return D.init_dit(g, cfg, dev)
+        return D.init_dit(_generator(seed, dev), cfg, dev)
 
     def denoise(p, b, caches):
         x = D.denoise_step(p, cfg, b["latents"], b.get("text"),
@@ -60,8 +86,38 @@ def _dit_model(cfg: D.DiTConfig) -> Model:
         precompute_step_mods=lambda p, t: D.precompute_step_mods(p, cfg, t))
 
 
+def _lm_model(cfg: T.ModelConfig) -> Model:
+    T.check_ported(cfg)
+
+    def init(seed, device="cuda"):
+        dev = resolve_device(device)
+        return T.init_model(_generator(seed, dev), cfg, dev)
+
+    def init_paged_caches(batch, num_pages, *, dtype=torch.bfloat16,
+                          device="cuda"):
+        return T.init_paged_caches(cfg, batch, num_pages, dtype=dtype,
+                                   device=resolve_device(device))
+
+    return Model(
+        kind="lm", cfg=cfg, init=init,
+        init_paged_caches=init_paged_caches,
+        prefill_chunk=lambda p, b, c: T.prefill_chunk(
+            p, cfg, b["tokens"], c, page_row=b["page_row"],
+            offset=b["offset"], chunk_len=b["chunk_len"], slot=b["slot"]),
+        decode_paged=lambda p, b, c: T.decode_paged(
+            p, cfg, b["token"], c, page_table=b["page_table"],
+            lengths=b["lengths"], active=b["active"]),
+        swap_out=lambda c, page_row, slot: T.swap_out_slot(
+            cfg, c, page_row, slot),
+        swap_in=lambda c, page_row, slot, state: T.swap_in_slot(
+            cfg, c, page_row, slot, state),
+        has_slot_state=T.has_slot_state(cfg))
+
+
 def build_model(cfg) -> Model:
     """Dispatch a config dataclass to its Model handle."""
     if isinstance(cfg, D.DiTConfig):
         return _dit_model(cfg)
+    if isinstance(cfg, T.ModelConfig):
+        return _lm_model(cfg)
     raise TypeError(f"config type {type(cfg).__name__} is not ported")

@@ -1,0 +1,542 @@
+"""Paged SLA2 attention for LM serving: projections with qk-norm and RoPE,
+the page pool, chunked prefill and single-token decode.
+
+The K/V cache lives in a pool of physical pages of ``block_k`` tokens
+(``init_paged_cache``); a host-side page table maps (slot, logical block)
+to a page, and page 0 is a trash page that takes masked writes.  For SLA2
+the pool also keeps one pooled router key per page and per-slot linear
+totals (``h_tot``, ``z_tot``) over the slot's complete blocks.  Every
+function here updates the cache in place and returns it.
+
+Prefill is exact attention of the chunk over the slot's paged history;
+decode routes each (slot, KV head) to its K_sel best pages and runs the
+SLA2 decode (sparse branch over the routed pages, linear complement from
+the totals, alpha combine).  ``paged_impl`` picks the path: 'fused' runs
+the CUDA kernels of ``kernels/sla2_decode_paged`` (their plain versions
+on a CPU tensor), 'gather' the reference that gathers pages into
+contiguous copies (the parity oracle), 'auto' fused on a CUDA tensor and
+gather on the CPU.
+
+Only ``mechanism="sla2"`` is ported.  'full', 'sla' and 'sparse_only'
+decode densely over the pages; they wait for the dense decode kernel
+(ROADMAP, kernel 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import masks as masklib
+from repro_torch.core import sla2 as sla2lib
+from repro_torch.core.attention import phi
+from repro_torch.core.quant import true_div
+from repro_torch.core.router import RouterConfig
+from repro_torch.core.sla2 import SLA2Config
+from repro_torch.kernels import ops
+from repro_torch.kernels import sla2_decode_paged as KP
+from repro_torch.models import layers as L
+
+_NOT_PORTED = ("mechanism {!r} is not ported: dense paged decode waits for "
+               "the dense decode kernel (ROADMAP, kernel 5); only 'sla2' "
+               "serves")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    """Per-layer attention hyperparameters: projection geometry, masks, the
+    SLA2 router / QAT knobs and the paged-serving switches."""
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    mechanism: str = "full"            # only sla2 is ported
+    prefix_len: int = 0
+    sliding_window: Optional[int] = None
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    block_q: int = 128
+    block_k: int = 64
+    k_frac: float = 0.05
+    n_q_blocks: int = 32               # alpha table size at init
+    paged_impl: str = "auto"           # fused | gather | auto
+    decode_quant_bits: str = "none"    # QAT tiles of the decode kernel
+    kv_quant: str = "none"             # page-pool storage: none|int8|fp8
+
+    def sla2_config(self) -> SLA2Config:
+        """The core SLA2 config view (what the params' init reads)."""
+        return SLA2Config(router=RouterConfig(
+            block_q=self.block_q, block_k=self.block_k, k_frac=self.k_frac,
+            causal=True, prefix_len=self.prefix_len,
+            sliding_window=self.sliding_window))
+
+
+class AttentionParams(nn.Module):
+    """Projections (``nn.Linear``, weight (out, in)), qk-norms, SLA2."""
+
+    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None, sla2=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        self.q_norm, self.k_norm = q_norm, k_norm
+        self.sla2 = sla2
+
+
+def init_attention(generator: torch.Generator, cfg: AttentionConfig,
+                   dtype=torch.float32, device=None) -> AttentionParams:
+    """One attention layer's params: QKV/output projections, the optional
+    qk-norms and the SLA2 router and alpha table."""
+    if cfg.mechanism != "sla2":
+        raise NotImplementedError(_NOT_PORTED.format(cfg.mechanism))
+    d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    std = d ** -0.5
+    lin = lambda i, o, s: L.linear(generator, i, o, dtype, s, device)
+    p = AttentionParams(lin(d, h * dh, std), lin(d, hkv * dh, std),
+                        lin(d, hkv * dh, std),
+                        lin(h * dh, d, (h * dh) ** -0.5))
+    if cfg.qk_norm:
+        p.q_norm = L.init_rmsnorm(dh, dtype, device)
+        p.k_norm = L.init_rmsnorm(dh, dtype, device)
+    p.sla2 = sla2lib.init_sla2_params(
+        generator, head_dim=dh, num_heads=h, n_q_blocks=cfg.n_q_blocks,
+        cfg=cfg.sla2_config(), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(params: AttentionParams, cfg: AttentionConfig, x,
+                 positions):
+    b, n, _ = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = F.linear(x, params.wq.weight).reshape(b, n, h, dh)
+    k = F.linear(x, params.wk.weight).reshape(b, n, hkv, dh)
+    v = F.linear(x, params.wv.weight).reshape(b, n, hkv, dh)
+    if cfg.qk_norm:
+        q = L.rmsnorm(params.q_norm, q)
+        k = L.rmsnorm(params.k_norm, k)
+    q = L.apply_rope(q, positions, theta=cfg.rope_theta)
+    k = L.apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(x, n_rep: int):
+    return x if n_rep == 1 else torch.repeat_interleave(x, n_rep, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# The page pool
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: AttentionConfig, num_pages: int, batch: int,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    """Page pool of one layer: K/V pages (codes with per-row f32 scales
+    under ``kv_quant``), the SLA2 pooled router key of every page (codes
+    and one scale per (page, KV head) under ``kv_quant``) and the per-slot
+    linear totals."""
+    if cfg.mechanism != "sla2":
+        raise NotImplementedError(_NOT_PORTED.format(cfg.mechanism))
+    hkv, dh, bk = cfg.num_kv_heads, cfg.head_dim, cfg.block_k
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    if cfg.kv_quant != "none":
+        qdt = ops.kv_pool_dtype(cfg.kv_quant)
+        cache = {"k_pages": z((num_pages, hkv, bk, dh), qdt),
+                 "v_pages": z((num_pages, hkv, bk, dh), qdt),
+                 "k_scale": z((num_pages, hkv, bk), torch.float32),
+                 "v_scale": z((num_pages, hkv, bk), torch.float32),
+                 "pooled_pages": z((num_pages, hkv, dh), qdt),
+                 "pooled_scale": z((num_pages, hkv), torch.float32)}
+    else:
+        cache = {"k_pages": z((num_pages, hkv, bk, dh), dtype),
+                 "v_pages": z((num_pages, hkv, bk, dh), dtype),
+                 "pooled_pages": z((num_pages, hkv, dh), torch.float32)}
+    cache["h_tot"] = z((batch, hkv, dh, dh), torch.float32)
+    cache["z_tot"] = z((batch, hkv, dh), torch.float32)
+    return cache
+
+
+# A slot's state in one layer is its pages (addressed by its page-table
+# row) and its per-slot totals (addressed by the slot id).
+PAGE_KEYS = ("k_pages", "v_pages", "pooled_pages",
+             "k_scale", "v_scale", "pooled_scale")
+SLOT_KEYS = ("h_tot", "z_tot")
+_SCALE_OF = {"k_pages": "k_scale", "v_pages": "v_scale",
+             "pooled_pages": "pooled_scale"}
+
+
+def extract_paged_state(cache: dict, page_row, slot: int) -> dict:
+    """Copies of one slot's pages (rows ``page_row``) and totals."""
+    idx = torch.as_tensor(page_row, device=cache["k_pages"].device).long()
+    st = {k: cache[k][idx].clone() for k in PAGE_KEYS if k in cache}
+    st.update({k: cache[k][slot].clone() for k in SLOT_KEYS if k in cache})
+    return st
+
+
+def insert_paged_state(cache: dict, page_row, slot: int, state: dict) -> dict:
+    """Write an extracted state back at (possibly other) pages and slot.
+    Raises ValueError for a leaf the cache does not have."""
+    idx = torch.as_tensor(page_row, device=cache["k_pages"].device).long()
+    for k, v in state.items():
+        if k not in cache:
+            raise ValueError(
+                f"state leaf {k!r} does not exist in the target cache "
+                f"(has {sorted(cache)}): wrong cache kind for this insert")
+        v = v.to(device=cache[k].device, dtype=cache[k].dtype)
+        if k in PAGE_KEYS:
+            cache[k][idx] = v
+        else:
+            cache[k][slot] = v
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Dispatch between the fused kernels and the gather reference
+# ---------------------------------------------------------------------------
+
+# Device types where paged_impl='auto' takes the gather reference.
+AUTO_GATHER_BACKENDS = ("cpu",)
+PAGED_PHASES = ("prefill", "decode", "verify")
+_DENSE_PATHS = {
+    "prefill": ("paged_flash_prefill", "_gather_pages + dense chunk attn"),
+    "decode": ("dense_decode_fused", "_gather_pages + dense masked decode"),
+    "verify": ("dense_decode_verify", "_gather_pages + dense window decode"),
+}
+# (mechanism, phase) -> (fused entry, gather reference), as in the JAX
+# package.  The port holds paged_flash_prefill, sla2_decode_fused and
+# sla2_decode_verify; the dense decode entries wait for kernel 5.
+PAGED_DISPATCH = {
+    ("sla2", "prefill"): _DENSE_PATHS["prefill"],
+    ("sla2", "decode"): ("sla2_decode_fused", "_sla2_decode_paged gather"),
+    ("sla2", "verify"): ("sla2_decode_verify", "_sla2_decode_window gather"),
+    **{(m, ph): _DENSE_PATHS[ph]
+       for m in ("full", "sla", "sparse_only") for ph in PAGED_PHASES},
+}
+PORTED_ENTRIES = ("paged_flash_prefill", "sla2_decode_fused",
+                  "sla2_decode_verify")
+
+
+def resolve_paged_impl(cfg: AttentionConfig, device) -> str:
+    """cfg.paged_impl, with 'auto' resolved for tensors on ``device``:
+    'gather' on the AUTO_GATHER_BACKENDS (the CPU), 'fused' elsewhere."""
+    if cfg.paged_impl not in ("auto", "fused", "gather"):
+        raise ValueError(f"unknown paged_impl {cfg.paged_impl!r}")
+    if cfg.paged_impl != "auto":
+        return cfg.paged_impl
+    return ("gather" if torch.device(device).type in AUTO_GATHER_BACKENDS
+            else "fused")
+
+
+def fused_paged_entry(mechanism: str, phase: str):
+    """Name of the fused entry serving (mechanism, phase), or None."""
+    entry = PAGED_DISPATCH.get((mechanism, phase))
+    return entry[0] if entry else None
+
+
+def use_fused(cfg: AttentionConfig, phase: str, device) -> bool:
+    """True when ``phase`` runs the fused entry for this config."""
+    return (resolve_paged_impl(cfg, device) == "fused"
+            and fused_paged_entry(cfg.mechanism, phase) is not None)
+
+
+def fused_entry_fn(name: str):
+    """The port's fused entry ``name``; raises for an entry whose kernel is
+    not ported yet (never a substitute)."""
+    if name not in PORTED_ENTRIES:
+        raise NotImplementedError(
+            f"fused entry {name!r} is not ported yet (ROADMAP, kernel 5)")
+    return getattr(KP, name)
+
+
+# ---------------------------------------------------------------------------
+# Pool reads and writes (dequantising under kv_quant)
+# ---------------------------------------------------------------------------
+
+def _kv_read(cache: dict, name: str, idx) -> torch.Tensor:
+    """``cache[name][idx]`` dequantised to f32."""
+    out = cache[name][idx]
+    sk = _SCALE_OF[name]
+    if sk in cache:
+        return ops.dequant_rows(out, cache[sk][idx])
+    return out.to(torch.float32)
+
+
+def _kv_gather_pages(cache: dict, name: str, page_table) -> torch.Tensor:
+    """Contiguous (B, Hkv, maxP * bk, Dh) f32 per-slot view of a page
+    array in logical order."""
+    g = _kv_read(cache, name, page_table.long())    # (B, maxP, Hkv, bk, Dh)
+    b, mp, hkv, bk, dh = g.shape
+    return g.transpose(1, 2).reshape(b, hkv, mp * bk, dh)
+
+
+def _kv_gather_blocks(cache: dict, name: str, phys) -> torch.Tensor:
+    """(B, Hkv, K, bk, Dh) f32 from per-KV-head physical page ids
+    (B, Hkv, K)."""
+    hkv = phys.shape[1]
+    h_ix = torch.arange(hkv, device=phys.device)[None, :, None]
+    ph = phys.long()
+    out = cache[name][ph, h_ix].to(torch.float32)
+    sk = _SCALE_OF[name]
+    if sk in cache:
+        out = out * cache[sk][ph, h_ix][..., None]
+    return out
+
+
+def _store_kv_rows(cache: dict, cfg: AttentionConfig, phys, rows, k_new,
+                   v_new):
+    """Write token rows at ``[phys, :, rows]``, the one point where a row is
+    quantised (under ``kv_quant``).  Returns (cache, k_eff, v_eff): the
+    values a later page read observes."""
+    phys, rows = phys.long(), rows.long()
+    if cfg.kv_quant == "none":
+        cache["k_pages"][phys, :, rows] = k_new.to(cache["k_pages"].dtype)
+        cache["v_pages"][phys, :, rows] = v_new.to(cache["v_pages"].dtype)
+        return cache, k_new, v_new
+    k_c, k_s = ops.quantize_rows(k_new, cfg.kv_quant)
+    v_c, v_s = ops.quantize_rows(v_new, cfg.kv_quant)
+    cache["k_pages"][phys, :, rows] = k_c
+    cache["v_pages"][phys, :, rows] = v_c
+    cache["k_scale"][phys, :, rows] = k_s
+    cache["v_scale"][phys, :, rows] = v_s
+    return cache, ops.dequant_rows(k_c, k_s), ops.dequant_rows(v_c, v_s)
+
+
+def _store_pooled(cache: dict, cfg: AttentionConfig, phys, pooled, keep):
+    """Write pooled router keys (f32 (..., Hkv, Dh)) at pages ``phys``
+    where ``keep``; the other rows keep what the page holds."""
+    phys = phys.long()
+    if cfg.kv_quant == "none":
+        old = cache["pooled_pages"][phys]
+        cache["pooled_pages"][phys] = torch.where(
+            keep[..., None, None], pooled.to(old.dtype), old)
+        return cache
+    codes, scale = ops.quantize_rows(pooled, cfg.kv_quant)
+    old_c, old_s = cache["pooled_pages"][phys], cache["pooled_scale"][phys]
+    cache["pooled_pages"][phys] = torch.where(keep[..., None, None], codes,
+                                              old_c)
+    cache["pooled_scale"][phys] = torch.where(keep[..., None], scale, old_s)
+    return cache
+
+
+def _sqrt(dh: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), math.sqrt(dh), dtype=torch.float32,
+                      device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill
+# ---------------------------------------------------------------------------
+
+def chunk_prefill_paged(params: AttentionParams, cfg: AttentionConfig, x,
+                        cache: dict, *, page_row, offset: int,
+                        chunk_len: int, slot: int):
+    """Prefill one chunk of ONE slot's prompt into the page pool.
+
+    x (1, C, d_model) chunk embeddings, padded to the chunk size;
+    page_row (maxP,) int32, the slot's page-table row; offset tokens of the
+    slot already cached (a multiple of block_k); chunk_len valid tokens
+    (<= C); slot the batch row of the per-slot totals.  Attention is exact
+    (softmax over the cached history and the chunk, causal in the chunk).
+    Returns (y (1, C, d_model), cache)."""
+    offset, chunk_len, slot = int(offset), int(chunk_len), int(slot)
+    _, c, _ = x.shape
+    h, hkv, dh, bk = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                      cfg.block_k)
+    n_rep = h // hkv
+    max_p = page_row.shape[0]
+    dev = x.device
+    ar = torch.arange(c, device=dev)
+    q, k_new, v_new = _project_qkv(params, cfg, x, (offset + ar)[None])
+
+    # ---- the chunk's K/V into the slot's pages (padding -> trash) ----
+    tok_pos = offset + ar
+    valid_t = ar < chunk_len
+    logical = torch.clamp(tok_pos // bk, max=max_p - 1)
+    phys = torch.where(valid_t, page_row.long()[logical], 0)
+    cache, k_eff, v_eff = _store_kv_rows(cache, cfg, phys, tok_pos % bk,
+                                         k_new[0], v_new[0])
+
+    # ---- exact attention: chunk queries over history + chunk ----
+    if use_fused(cfg, "prefill", dev):
+        o = fused_entry_fn("paged_flash_prefill")(
+            q.transpose(1, 2)[0].contiguous(), cache["k_pages"],
+            cache["v_pages"], page_row, offset=offset, block_k=bk,
+            n_rep=n_rep, window=cfg.sliding_window,
+            prefix_len=cfg.prefix_len, kv_quant=cfg.kv_quant,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+        o = o.to(x.dtype).transpose(0, 1).reshape(1, c, h * dh)
+    else:
+        k_all = _repeat_kv(_kv_gather_pages(cache, "k_pages",
+                                            page_row[None]), n_rep)
+        v_all = _repeat_kv(_kv_gather_pages(cache, "v_pages",
+                                            page_row[None]), n_rep)
+        q_t = q.transpose(1, 2).to(torch.float32)         # (1, H, C, Dh)
+        s = true_div(torch.einsum("bhnd,bhmd->bhnm", q_t, k_all),
+                     math.sqrt(dh))
+        n_kv = k_all.shape[2]
+        vis = masklib.token_causal_mask(c, n_kv, offset, cfg.prefix_len,
+                                        device=dev)
+        if cfg.sliding_window is not None:
+            qi = ar + offset
+            kj = torch.arange(n_kv, device=dev)
+            sw = kj[None, :] >= (qi[:, None] - cfg.sliding_window + 1)
+            if cfg.prefix_len:
+                sw = sw | (kj[None, :] < cfg.prefix_len)
+            vis = vis & sw
+        s = torch.where(vis, s, masklib.NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhnm,bhmd->bhnd", p, v_all)
+        o = o.to(x.dtype).transpose(1, 2).reshape(1, c, h * dh)
+
+    # ---- SLA2 block states of the chunk's blocks, from the page values ----
+    t_c = c // bk
+    kb = k_eff.to(torch.float32).reshape(t_c, bk, hkv, dh).transpose(1, 2)
+    vb = v_eff.to(torch.float32).reshape(t_c, bk, hkv, dh).transpose(1, 2)
+    w = valid_t.reshape(t_c, bk).to(torch.float32)
+    wb = w[:, None, :, None]
+    pooled = (kb * wb).sum(-2) / torch.clamp(wb.sum(-2), min=1.0)
+    blk_ids = torch.clamp(offset // bk + torch.arange(t_c, device=dev),
+                          max=max_p - 1)
+    has_tok = w.sum(-1) > 0
+    phys_blk = torch.where(has_tok, page_row.long()[blk_ids], 0)
+    cache = _store_pooled(cache, cfg, phys_blk, pooled, has_tok)
+    complete = (w.sum(-1) == bk)[:, None, None, None]
+    kf = phi(kb) * wb
+    h_add = (torch.einsum("thkd,thke->thde", kf, vb * wb) * complete).sum(0)
+    z_add = (kf.sum(-2) * complete[..., 0]).sum(0)
+    if offset == 0:          # first chunk of a (possibly recycled) slot
+        cache["h_tot"][slot] = h_add
+        cache["z_tot"][slot] = z_add
+    else:
+        cache["h_tot"][slot] += h_add
+        cache["z_tot"][slot] += z_add
+    return F.linear(o, params.wo.weight), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def decode_step_paged(params: AttentionParams, cfg: AttentionConfig, x_t,
+                      cache: dict, *, page_table, lengths, active):
+    """Batched one-token decode with per-slot offsets over the page pool.
+
+    x_t (B, 1, d_model); page_table (B, maxP) int32; lengths (B,) tokens
+    already cached per slot (the new token lands at lengths[b]); active
+    (B,) bool.  Inactive rows write to the trash page and give outputs the
+    engine ignores.  Returns (o (B, 1, d_model), cache)."""
+    if cfg.mechanism != "sla2":
+        raise NotImplementedError(_NOT_PORTED.format(cfg.mechanism))
+    b = x_t.shape[0]
+    h, dh, bk = cfg.num_heads, cfg.head_dim, cfg.block_k
+    lengths = lengths.long()
+    q, k_new, v_new = _project_qkv(params, cfg, x_t, lengths[:, None])
+    q = q.transpose(1, 2)                                # (B, H, 1, Dh)
+    cur_blk = lengths // bk
+    phys_w = torch.where(
+        active, page_table.long().gather(1, cur_blk[:, None])[:, 0], 0)
+    cache, _, _ = _store_kv_rows(cache, cfg, phys_w, lengths % bk,
+                                 k_new[:, 0], v_new[:, 0])
+    o = _sla2_decode_paged(params, cfg, q, cache, page_table, phys_w,
+                           lengths + 1, active)
+    o = o.to(x_t.dtype).transpose(1, 2).reshape(b, 1, h * dh)
+    return F.linear(o, params.wo.weight), cache
+
+
+def _alpha_last(sla2_p, h: int) -> torch.Tensor:
+    logit = sla2_p.alpha_logit[:, -1].to(torch.float32)
+    if logit.shape[0] == 1 and h > 1:
+        logit = logit.expand(h)
+    return logit
+
+
+def _sla2_decode_paged(params: AttentionParams, cfg: AttentionConfig, q,
+                       cache, page_table, phys_w, t_new, active):
+    """SLA2 decode with per-slot lengths: update the current block's pooled
+    key and (on completion) the linear totals, route over the pooled keys,
+    then the fused kernel or the gather reference."""
+    sla2_p = params.sla2
+    b, h, _, dh = q.shape
+    hkv = cfg.num_kv_heads
+    n_rep = h // hkv
+    bk = cfg.block_k
+    t_n = page_table.shape[1]
+    dev = q.device
+
+    # ---- the current block's stats (trash page if inactive) ----
+    cur_blk = (t_new - 1) // bk
+    kblk = _kv_read(cache, "k_pages", phys_w)            # (B, Hkv, bk, Dh)
+    vblk = _kv_read(cache, "v_pages", phys_w)
+    in_blk = (cur_blk[:, None] * bk + torch.arange(bk, device=dev)[None, :]
+              ) < t_new[:, None]
+    w = in_blk.to(torch.float32)[:, None, :, None]
+    pooled_cur = (kblk * w).sum(-2) / torch.clamp(w.sum(-2), min=1.0)
+    cache = _store_pooled(cache, cfg, phys_w, pooled_cur, active)
+    completed = (t_new % bk) == 0
+    kf_cur = phi(kblk) * w
+    h_cur = torch.einsum("bhkd,bhke->bhde", kf_cur, vblk * w)
+    z_cur = kf_cur.sum(-2)
+    upd = (completed & active)[:, None]
+    cache["h_tot"] += torch.where(upd[..., None, None], h_cur, 0.0)
+    cache["z_tot"] += torch.where(upd[..., None], z_cur, 0.0)
+
+    # ---- route: group-shared over the slot's logical blocks ----
+    rp = sla2_p.router
+    qr = q[:, :, 0].to(torch.float32)                    # (B, H, Dh)
+    pk = _kv_read(cache, "pooled_pages", page_table.long()).transpose(1, 2)
+    if rp is not None:
+        qr = F.linear(qr, rp.proj_q.weight.to(torch.float32))
+        pk = F.linear(pk, rp.proj_k.weight.to(torch.float32))
+    qr_g = qr.reshape(b, hkv, n_rep, dh).mean(dim=2)
+    scores = torch.einsum("bhd,bhtd->bht", qr_g, pk) / _sqrt(dh, qr)
+    blk_ids = torch.arange(t_n, device=dev)
+    scores = torch.where(blk_ids[None, None, :] <= cur_blk[:, None, None],
+                         scores, masklib.NEG_INF)
+    scores = torch.where(blk_ids[None, None, :] == cur_blk[:, None, None],
+                         math.inf, scores)
+    k_sel = max(1, round(cfg.k_frac * t_n))
+    top_vals, idx = torch.topk(scores, k_sel, dim=-1)    # (B, Hkv, K_sel)
+    valid = top_vals > masklib.NEG_INF * 0.5
+    pt = page_table.long()[:, None, :].expand(b, hkv, t_n)
+    phys_sel = torch.where(valid, pt.gather(2, idx), 0)
+    complete_bound = cur_blk + completed.long()
+    sel_complete = valid & (idx < complete_bound[:, None, None])
+
+    if use_fused(cfg, "decode", dev):
+        alpha = _alpha_last(sla2_p, h).reshape(1, hkv, n_rep).expand(
+            b, hkv, n_rep).contiguous()
+        i32 = lambda t: t.to(torch.int32)
+        o = fused_entry_fn("sla2_decode_fused")(
+            q[:, :, 0].reshape(b, hkv, n_rep, dh), cache["k_pages"],
+            cache["v_pages"], i32(phys_sel), i32(idx), i32(valid),
+            i32(sel_complete), i32(t_new), cache["h_tot"], cache["z_tot"],
+            alpha, block_k=bk, quant_bits=cfg.decode_quant_bits,
+            kv_quant=cfg.kv_quant, k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale"))
+        return o.reshape(b, h, dh)[:, :, None, :]
+
+    # ---- gather reference: gather the routed pages, flash, linear ----
+    k_sel_blocks = _kv_gather_blocks(cache, "k_pages", phys_sel)
+    v_sel_blocks = _kv_gather_blocks(cache, "v_pages", phys_sel)
+    q_g = q[:, :, 0].to(torch.float32).reshape(b, hkv, n_rep, dh)
+    s = torch.einsum("bhgd,bhjkd->bhgjk", q_g, k_sel_blocks) / _sqrt(dh, q_g)
+    pos = idx[..., None] * bk + torch.arange(bk, device=dev)
+    vis = (pos < t_new[:, None, None, None]) & valid[..., None]
+    s = torch.where(vis[:, :, None], s, masklib.NEG_INF)
+    p = torch.softmax(s.reshape(b, hkv, n_rep, -1), dim=-1).reshape(s.shape)
+    o_s = torch.einsum("bhgjk,bhjkd->bhgd", p, v_sel_blocks)
+
+    qfeat = phi(q[:, :, 0]).reshape(b, hkv, n_rep, dh)
+    ls = torch.einsum("bhgd,bhjkd->bhgjk", qfeat, phi(k_sel_blocks))
+    ls = ls * sel_complete[:, :, None, :, None].to(torch.float32)
+    sub_num = torch.einsum("bhgjk,bhjkd->bhgd", ls, v_sel_blocks)
+    sub_den = ls.sum(dim=(-1, -2))
+    den_tot = torch.einsum("bhgd,bhd->bhg", qfeat, cache["z_tot"])
+    num = torch.einsum("bhgd,bhde->bhge", qfeat, cache["h_tot"]) - sub_num
+    den = den_tot - sub_den
+    den = torch.where(den > 1e-4 * den_tot + 1e-12, den, 0.0)[..., None]
+    o_l = torch.where(den > 0, num / torch.clamp(den, min=1e-12), 0.0)
+    a_last = torch.sigmoid(_alpha_last(sla2_p, h)).reshape(1, hkv, n_rep, 1)
+    a_eff = torch.where(den > 0, a_last, 1.0)
+    o = a_eff * o_s + (1.0 - a_eff) * o_l
+    return o.reshape(b, h, dh)[:, :, None, :]

@@ -1,1 +1,2 @@
-"""Serving of the port: step-level diffusion serving (``diffusion.py``)."""
+"""Serving of the port: step-level diffusion serving (``diffusion.py``) and
+continuous-batching paged LM serving (``engine.py``)."""

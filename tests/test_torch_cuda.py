@@ -10,14 +10,19 @@ Every test needs an NVIDIA card (the kernels have no CPU mode) and skips
 without one.  Bounds: 1e-4 relative max error in f32 and 2^-7 (two bf16
 ulps) in bf16 for the backward, whose sums run in another order than the
 plain version's; the int8 forward equals its plain version bit for bit on
-the card (PERF.md), bounded here by 1e-3.
+the card (PERF.md), bounded here by 1e-3 (fp8 1e-2).  The paged kernels
+(sla2_decode_paged.cu) are held to 2e-5 with f32 tiles, 1e-3 with int8
+and 1e-2 with fp8 QAT tiles (an exp that differs by an ulp can flip one
+rounded P code).
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import router as R
 from repro_torch.core.quant import smooth_k
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sla2_decode_paged as KP
 from repro_torch.kernels.sla2_bwd import sparse_flash_bwd, sparse_flash_bwd_plain
 from repro_torch.kernels.sla2_fwd import sparse_flash_fwd, sparse_flash_fwd_plain
 
@@ -112,3 +117,101 @@ def test_fwd_kernel_matches_plain(card, quant):
     po, pl = sparse_flash_fwd_plain(q, k, v, idx, valid, **kw)
     assert _rel(o, po) <= max(1e-3, 2 ** -7)
     assert float((lse - pl).abs().max()) < 1e-3
+
+
+BOUND = {"none": 2e-5, "int8": 1e-3, "fp8": 1e-2}
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "fp8"])
+def test_cuda_kernel_matches_plain(card, quant):
+    """The forward kernel on a causal case with prefix_len and kv_len."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy((rng.standard_normal((2, 256, 64)) * 0.5)
+                                .astype(np.float32)).cuda() for _ in range(3))
+    idx, valid = R.route_indices(None, q, k, R.RouterConfig(
+        block_q=32, block_k=16, k_frac=0.3, causal=True))
+    valid = valid.to(torch.int32)
+    if quant != "none":
+        k = smooth_k(k).contiguous()
+    kw = dict(block_q=32, block_k=16, causal=True, quant_bits=quant,
+              prefix_len=16, kv_len=250)
+    before = sparse_flash_fwd.launches
+    o, lse = sparse_flash_fwd(q, k, v, idx, valid, **kw)
+    torch.cuda.synchronize()
+    assert sparse_flash_fwd.launches == before + 1
+    po, pl = sparse_flash_fwd_plain(q, k, v, idx, valid, **kw)
+    assert _rel(o, po) < BOUND[quant]
+    assert float((lse - pl).abs().max()) < 1e-4
+
+
+def _pool(g, n_pages, hkv, bk, dh, kv_quant, dtype):
+    k, v = (torch.randn(n_pages, hkv, bk, dh, generator=g, device="cuda")
+            for _ in range(2))
+    if kv_quant == "none":
+        return k.to(dtype), v.to(dtype), None, None
+    (kc, ks), (vc, vs) = (ops.quantize_rows(t, kv_quant) for t in (k, v))
+    return kc, vc, ks, vs
+
+
+@pytest.mark.parametrize("quant,kv_quant,n_rep,w,dtype", [
+    ("none", "none", 5, 1, "bfloat16"), ("none", "none", 2, 3, "float32"),
+    ("int8", "int8", 5, 1, "bfloat16"), ("fp8", "fp8", 1, 4, "bfloat16"),
+    ("int8", "fp8", 2, 1, "float32"), ("none", "int8", 5, 4, "bfloat16")])
+def test_decode_kernel_matches_plain(card, quant, kv_quant, n_rep, w, dtype):
+    g, dt = card, getattr(torch, dtype)
+    b, hkv, dh, bk, k_sel, n_pages = 3, 4, 128, 64, 26, 300
+    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, dt)
+    ints = lambda lo, hi, shape: torch.randint(
+        lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+    rnd = lambda *shape: torch.rand(*shape, generator=g, device="cuda")
+    q = torch.randn(b, hkv, w, n_rep, dh, generator=g, device="cuda").to(dt)
+    phys = ints(1, n_pages, (b, hkv, w, k_sel))
+    jlog = ints(0, 100, (b, hkv, w, k_sel))
+    valid = (rnd(b, hkv, w, k_sel) > 0.2).to(torch.int32)
+    valid[0, 0] = 0                                   # a row with none
+    comp = (rnd(b, hkv, w, k_sel) > 0.3).to(torch.int32) * valid
+    t_new = ints(50 * bk, 100 * bk, (b, w))
+    h = rnd(b, hkv, w, dh, dh) * 50
+    z = rnd(b, hkv, w, dh) * 1000 + 200
+    alpha = torch.randn(b, hkv, n_rep, generator=g, device="cuda")
+    args = (q, kp, vp, phys, jlog, valid, comp, t_new, h, z, alpha)
+    kw = dict(block_k=bk, quant_bits=quant, kv_quant=kv_quant, k_scale=ks,
+              v_scale=vs)
+    before = KP.sla2_decode_verify.launches
+    o = KP.sla2_decode_verify(*args, **kw)
+    torch.cuda.synchronize()
+    assert KP.sla2_decode_verify.launches == before + 1
+    want = KP.sla2_decode_verify_plain(*args, **kw)
+    assert torch.isfinite(o).all() and _rel(o, want) < BOUND[quant]
+
+
+@pytest.mark.parametrize("offset,window,prefix_len,kv_quant,dh", [
+    (0, None, 0, "none", 128), (1024, None, 0, "int8", 128),
+    (512, 256, 48, "fp8", 128), (192, 100, 0, "none", 64)])
+def test_prefill_kernel_matches_plain(card, offset, window, prefix_len,
+                                      kv_quant, dh):
+    g = card
+    hkv, n_rep, bk, c, max_p, n_pages = 4, 5, 64, 256, 64, 100
+    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, torch.bfloat16)
+    q = torch.randn(hkv * n_rep, c, dh, generator=g,
+                    device="cuda").bfloat16()
+    row = torch.zeros(max_p, dtype=torch.int32, device="cuda")
+    used = -(-(offset + c) // bk)
+    row[:used] = (torch.randperm(n_pages - 1, generator=g,
+                                 device="cuda")[:used] + 1).int()
+    kw = dict(offset=offset, block_k=bk, n_rep=n_rep, window=window,
+              prefix_len=prefix_len, kv_quant=kv_quant, k_scale=ks,
+              v_scale=vs)
+    before = KP.paged_flash_prefill.launches
+    o = KP.paged_flash_prefill(q, kp, vp, row, **kw)
+    torch.cuda.synchronize()
+    assert KP.paged_flash_prefill.launches == before + 1
+    assert _rel(o, KP.paged_flash_prefill_plain(q, kp, vp, row, **kw)) < 2e-5
+
+
+def test_paged_kernels_reject_what_they_do_not_take(card):
+    kp = torch.zeros(4, 2, 64, 80, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(4, 64, 80, device="cuda", dtype=torch.bfloat16)
+    row = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="Dh in"):
+        KP.paged_flash_prefill(q, kp, kp, row, offset=0, block_k=64, n_rep=2)

@@ -9,8 +9,8 @@ and 1e-2 for fp8.  Both versions follow the same online loop, so the
 error is ~3e-7 until a 1-ulp difference between torch's and XLA's exp
 flips one rounded P code: that moves one p of one row by 1/127 (int8) or
 by up to one e4m3 step, 1/16 of it (fp8; 4.1e-3 seen at prefix_len=48).
-The CUDA kernel itself runs only on a card: the ``cuda``-marked tests
-skip here.
+The CUDA kernel itself runs only on a card: its tests are in the
+JAX-free tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +23,6 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.sla2_fwd import sparse_flash_fwd as jfwd
 from repro_torch.core import router as trouter
-from repro_torch.core.quant import smooth_k
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.sla2_fwd import (sparse_flash_fwd,
@@ -214,26 +213,3 @@ def test_sla2_block_sparse_matches_jax(quant):
         assert _rel(to.numpy(), np.asarray(jo)) < 1e-3
     np.testing.assert_allclose(taux["lse"].numpy(), np.asarray(jaux["lse"]),
                                atol=2e-5)
-
-
-# ---------------------------------------------------------------------------
-# on the card (skipped without one)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("quant", ["none", "int8", "fp8"])
-def test_cuda_kernel_matches_plain(quant):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
-    q, k, v, idx, valid = (t.cuda() for t in _torch(*_case(SHAPES[0], True)))
-    if quant != "none":
-        k = smooth_k(k).contiguous()
-    kw = dict(block_q=32, block_k=16, causal=True, quant_bits=quant,
-              prefix_len=16, kv_len=250)
-    before = sparse_flash_fwd.launches
-    o, lse = sparse_flash_fwd(q, k, v, idx, valid, **kw)
-    torch.cuda.synchronize()
-    assert sparse_flash_fwd.launches == before + 1
-    po, pl = sparse_flash_fwd_plain(q, k, v, idx, valid, **kw)
-    assert _rel(o.cpu().numpy(), po.cpu().numpy()) < BOUND[quant]
-    np.testing.assert_allclose(lse.cpu().numpy(), pl.cpu().numpy(), atol=1e-4)

@@ -33,7 +33,8 @@ def _imported_roots(path):
 def test_port_and_chip_smoke_never_import_jax_or_repro():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "profile_dit_step.py"),
-             os.path.join(REPO, "tools", "profile_train_step.py")]
+             os.path.join(REPO, "tools", "profile_train_step.py"),
+             os.path.join(REPO, "tools", "profile_lm_step.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
@@ -47,7 +48,10 @@ def test_import_leaves_jax_unloaded_and_builds_nothing():
     code = ("import sys, repro_torch, repro_torch.serve.diffusion, "
             "repro_torch.kernels.sla2_fwd, repro_torch.kernels.sla2_bwd, "
             "repro_torch.convert, repro_torch.train.stage1, "
-            "repro_torch.train, repro_torch.data, repro_torch.checkpoint; "
+            "repro_torch.train, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.serve.engine, repro_torch.models.transformer, "
+            "repro_torch.kernels.sla2_decode_paged, "
+            "repro_torch.configs.qwen3_14b; "
             "from repro_torch.kernels import build; "
             "assert not build._loaded; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
