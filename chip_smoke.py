@@ -68,11 +68,38 @@ run outside a checkout of the repository; each prints its wall time):
              tokens fed to both): logits within a relative norm error of
              1e-3, greedy tokens identical;
              then a pool too small for all slots, once with swapping and
-             once without: a swap-out and a recompute, the same tokens.
+             once without: a swap-out and a recompute, the same tokens;
+13. lm-spec  the lm-serve model, weights and prompts with speculative=
+             "linear", draft_len=3 (the SLA2 linear drafter): launches
+             sla2_decode = 40 x verify dispatches, prefill 40 x chunks;
+             greedy tokens equal lm-serve's (a request may stop being
+             compared only where lm-serve's top-2 logit margin is below
+             the bf16 resolution of its logit); layer 0's first W = 4
+             verify call of a full batch against its plain version, timed;
+14. lm-dense-kernel  a mechanism="full" qwen3-14b sharing every tensor of
+             the SLA2 weights but the sla2 leaves: layer 0's dense decode
+             inputs and a W = 4 verify window (n-gram drafts), captured
+             from short 4-slot prefills, through dense_decode
+             (sla2_decode_paged.cu) and its plain version; a sweep over
+             quant_bits x kv_quant x W x window x prefix_len x n_rep with
+             a fully masked slot; CUDA-event times at the lm-serve context
+             lengths (B 4, W 1 and 4) beside the plain version, the bytes
+             bound and SDPA over the gathered K/V;
+15. lm-dense-serve  the dense model through the lm-serve engine and
+             prompts, speculative="off" (launches dense_decode = 40 x
+             decode dispatches) and then "ngram", draft_len=3 (40 x verify
+             dispatches; tokens held to the off run's as in lm-spec);
+16. lm-spec-context  2 layers, f32 weights and pages, both mechanisms:
+             speculative fused and gather engines (linear for SLA2, ngram
+             for full; the gather engine fed the fused drafts): verify
+             logits within 1e-3 relative norm error, greedy tokens equal
+             to each other and to speculative="off"; a too-small pool with
+             and without swap gives the same tokens.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import math
 import os
@@ -660,6 +687,17 @@ def phase_stage1():
     return pk
 
 
+def free_cuda():
+    """Free the device memory of engines no longer referenced: the hooks
+    the LM phases put on an engine refer back to it, so a dropped engine
+    is a reference cycle that only the garbage collector frees."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def lm_engine(model, params, **overrides):
     """A fused ServeEngine at the lm-serve geometry, params loaded."""
     from repro_torch.serve.engine import EngineConfig, ServeEngine
@@ -676,27 +714,30 @@ def _clone(x):
     return x.clone() if isinstance(x, torch.Tensor) else x
 
 
-def capture_layer0(model, params):
-    """Layer 0's inputs to the two paged kernels, cloned, as the engine
-    gives them: the decode call of the first step with all 4 slots
-    decoding, and the prefill call of the first chunk at offset >= 1024,
-    from a short 4-slot prefill at full width."""
+def capture_layer0(model, params, want=None, **overrides):
+    """Layer 0's inputs to the paged kernels, cloned, as the engine gives
+    them, from a short 4-slot prefill at full width.  ``want`` {entry:
+    predicate(engine, args, kw)} picks the call; by default the SLA2
+    decode call of the first step with all 4 slots decoding and the
+    prefill call of the first chunk at offset >= 1024."""
     import torch
     from repro_torch.models import attention as A
     from repro_torch.serve.engine import make_mixed_requests
-    eng = lm_engine(model, params)
+    eng = lm_engine(model, params, **overrides)
+    full = lambda: sum(s.decoding for s in eng._slots.values()) == LM_SLOTS
     got = {}
-    want = {
-        "sla2_decode_fused": lambda a, k: sum(
-            s.decoding for s in eng._slots.values()) == LM_SLOTS,
-        "paged_flash_prefill": lambda a, k: int(k["offset"]) >= 2 * LM_CHUNK}
+    if want is None:
+        want = {"sla2_decode_fused": lambda e, a, k: full(),
+                "paged_flash_prefill":
+                    lambda e, a, k: int(k["offset"]) >= 2 * LM_CHUNK}
     entry = A.fused_entry_fn
 
     def capturing_entry(name):
         fn = entry(name)
 
         def run(*args, **kw):
-            if name not in got and want[name](args, kw):
+            if name in want and name not in got and want[name](eng, args,
+                                                               kw):
                 got[name] = ([_clone(a) for a in args],
                              {k: _clone(v) for k, v in kw.items()})
             return fn(*args, **kw)
@@ -714,21 +755,25 @@ def capture_layer0(model, params):
         A.fused_entry_fn = entry
     torch.cuda.synchronize()
     del eng
-    torch.cuda.empty_cache()
+    free_cuda()
     return got
 
 
 def decode_bound_ms(args):
-    """Least time of one decode call: the bytes it must move (the valid
-    routed K/V pages with their scales, h_tot / z_tot, q, the routing,
-    alpha, o) over the HBM rate; its operations are a few MFLOP."""
+    """Least time of one sla2_decode call, fused (W = 1) or verify
+    arguments: the distinct valid routed K/V pages of each (slot, KV head)
+    with their scales, h_tot / z_tot of every row, q, the routing, alpha
+    and o, over the HBM rate; its operations are a few MFLOP."""
+    import torch
     q, kp, _, phys, _, valid, _, _, h, z, alpha = args
-    b, hkv, n_rep, dh = q.shape
-    n_valid = int(valid.sum())
-    page = kp.shape[2] * dh * kp.element_size()
-    nbytes = (2 * n_valid * page + h.numel() * 4 + z.numel() * 4
+    b, hkv = q.shape[:2]
+    key = (torch.arange(b * hkv, device=q.device).reshape(
+        b, hkv, *[1] * (phys.dim() - 2)) * kp.shape[0] + phys.long())
+    n_pages = int(torch.unique(key[valid == 1]).numel())
+    page = kp.shape[2] * q.shape[-1] * kp.element_size()
+    nbytes = (2 * n_pages * page + h.numel() * 4 + z.numel() * 4
               + q.numel() * q.element_size() + 4 * phys.numel() * 4
-              + alpha.numel() * 4 + b * hkv * n_rep * dh * 4)
+              + alpha.numel() * 4 + q.numel() * 4)
     return nbytes / PEAK_BYTES * 1e3
 
 
@@ -920,84 +965,541 @@ def phase_lm_kernel(model, params):
         f"bound {l_ops / PEAK_BF16_OPS * 1e3:.4f} ms (bf16 tensor cores; "
         f"{l_ops / PEAK_F32_OPS * 1e3:.3f} ms on f32 CUDA cores)")
     del got, dargs, pargs
-    torch.cuda.empty_cache()
+    free_cuda()
     return {"decode": (d_abs, d_ms, d_plain, d_bound),
             "prefill": (p_abs, p_ms, p_plain, p_bound, p_by, t_f32, p_lib)}
 
 
-def phase_lm_serve(model, params):
+def bf16_resolution(x: float) -> float:
+    """Spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def record_margins(eng, margins):
+    """Wrap ``eng._sample`` so that every greedy sample records, per row,
+    the top-2 logit margin and the top logit under (uid, output index)."""
+    import torch
+    sample = eng._sample
+
+    def hooked(logits):
+        top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
+        if logits.shape[0] == 1:            # a prefill's first token
+            rows = [(0, s) for s, st in eng._slots.items()
+                    if not st.decoding and st.pos == len(st.tokens)][:1]
+        else:
+            rows = [(s, s) for s, st in eng._slots.items() if st.decoding]
+        for r, s in rows:
+            req = eng._slots[s].req
+            margins[(req.uid, len(req.output))] = (
+                float(top[r, 0] - top[r, 1]), float(top[r, 0]))
+        return sample(logits)
+    eng._sample = hooked
+
+
+def compare_tokens(tag, want, got, margins):
+    """Greedy tokens ``got`` against ``want`` ({uid: tokens}).  A request
+    may differ only where the ``want`` run's top-2 margin is below the
+    bf16 resolution of its top logit; its comparison stops there.
+    Returns those stops; raises on any other difference."""
+    stops = []
+    for uid, ref in sorted(want.items()):
+        have = got[uid]
+        if len(have) != len(ref):
+            raise AssertionError(f"[{tag}] request {uid}: {len(have)} "
+                                 f"tokens, want {len(ref)}")
+        for i, (a, b) in enumerate(zip(have, ref)):
+            if a == b:
+                continue
+            margin, top = margins[(uid, i)]
+            res = bf16_resolution(top)
+            if not margin < res:
+                raise AssertionError(
+                    f"[{tag}] request {uid} differs at token {i} ({a} vs "
+                    f"{b}) where the top-2 margin {margin:.4g} is not below "
+                    f"the bf16 resolution {res:.4g} of its logit {top:.4g}")
+            stops.append({"uid": uid, "pos": i, "margin": margin,
+                          "top_logit": top, "bf16_resolution": res})
+            break
+    return stops
+
+
+def serve_lm(model, params, counters, margins=None, on_engine=None,
+             **overrides):
+    """Serve the LM_PROMPTS (LM_NEW new tokens each, the fourth submitted
+    after the first decode dispatch) through a fused engine at the
+    lm-serve geometry.  ``counters`` {name: wrapper}: every count is set
+    to 0 just before the run and read just after.  Returns tokens, stats,
+    launches, ms per prefill chunk and per decode dispatch by active
+    slots, peak memory and wall time."""
     import numpy as np
     import torch
-    from repro_torch.kernels import sla2_decode_paged as KP
     from repro_torch.serve.engine import make_mixed_requests
     cfg = model.cfg
-    eng = lm_engine(model, params)
+    eng = lm_engine(model, params, **overrides)
     reqs = make_mixed_requests(cfg.vocab_size,
                                [(n, LM_NEW) for n in LM_PROMPTS], seed=SEED)
     prefill_ms, decode_ms = [], {}
+    dispatches = lambda: eng.stats["decode_steps"] + eng.stats["spec_steps"]
 
     def timed(name, sink):
         fn = getattr(eng, name)
 
         def run():
             n_dec = sum(s.decoding for s in eng._slots.values())
-            before = (eng.stats["prefill_chunks"], eng.stats["decode_steps"])
+            before = (eng.stats["prefill_chunks"], dispatches())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            if (eng.stats["prefill_chunks"], eng.stats["decode_steps"]) \
-                    != before:
+            if (eng.stats["prefill_chunks"], dispatches()) != before:
                 sink(ms, n_dec)
         setattr(eng, name, run)
 
     timed("_prefill_step", lambda ms, n: prefill_ms.append(ms))
     timed("_decode_step", lambda ms, n: decode_ms.setdefault(n, []).append(ms))
+    if margins is not None:
+        record_margins(eng, margins)
+    if on_engine is not None:
+        on_engine(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    KP.sla2_decode_verify.launches = 0
-    KP.paged_flash_prefill.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     for r in reqs[:3]:
         eng.submit(r)
-    while eng.stats["decode_steps"] == 0:
+    while dispatches() == 0:
         eng.step()
     eng.submit(reqs[3])                        # joins after the first decode
     done = eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"sla2_decode_paged": KP.sla2_decode_verify.launches,
-                "paged_flash_prefill": KP.paged_flash_prefill.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    st = eng.stats
-    want = {"sla2_decode_paged": cfg.n_layers * st["decode_steps"],
-            "paged_flash_prefill": cfg.n_layers * st["prefill_chunks"]}
-    chunks = sum(-(-n // LM_CHUNK) for n in LM_PROMPTS)
-    per_slot = {n: (round(float(np.median(v)), 3), len(v))
-                for n, v in sorted(decode_ms.items())}
-    log(f"[lm-serve] {cfg.name} {cfg.n_layers} layers: {len(done)} requests "
-        f"in {st['engine_steps']} engine steps, {wall:.1f} s; "
-        f"{st['prefill_chunks']} prefill chunks, {st['decode_steps']} decode "
-        f"dispatches; launches {launches} (want {want})")
-    log(f"[lm-serve] ms per prefill chunk {[round(t, 1) for t in prefill_ms]}")
-    log(f"[lm-serve] ms per decode step by active slots (median, count): "
-        f"{per_slot}; peak memory {peak / 2**30:.2f} GiB")
-    log(f"[lm-serve] tokens: " + "; ".join(
-        f"{r.uid} (prompt {len(r.prompt)}): {r.output}"
-        for r in sorted(done, key=lambda r: r.uid)))
     if sorted(r.uid for r in done) != [r.uid for r in reqs] or any(
             len(r.output) != LM_NEW or min(r.output) < 0
             or max(r.output) >= cfg.vocab_size for r in done):
         raise AssertionError("not every request produced its tokens")
+    st = dict(eng.stats)
+    del eng
+    free_cuda()
+    per_slot = {n: (round(float(np.median(v)), 3), len(v))
+                for n, v in sorted(decode_ms.items())}
+    return {"tokens": {r.uid: list(r.output) for r in done},
+            "prompts": {r.uid: len(r.prompt) for r in done}, "stats": st,
+            "launches": launches, "prefill_ms": prefill_ms,
+            "decode_ms": per_slot, "peak": peak, "wall": wall}
+
+
+def check_launches(tag, run, n_layers, decode_key, dispatch_stat):
+    """The paged kernels ran once per layer and dispatch: ``decode_key``
+    n_layers x the ``dispatch_stat`` dispatches, prefill n_layers x the
+    chunks of the prompts."""
+    st, launches = run["stats"], run["launches"]
+    want = {decode_key: n_layers * st[dispatch_stat],
+            "paged_flash_prefill": n_layers * st["prefill_chunks"]}
+    chunks = sum(-(-n // LM_CHUNK) for n in LM_PROMPTS)
+    log(f"[{tag}] {len(run['tokens'])} requests in {st['engine_steps']} "
+        f"engine steps, {run['wall']:.1f} s; {st['prefill_chunks']} prefill "
+        f"chunks, {st[dispatch_stat]} {dispatch_stat.replace('_', ' ')}; "
+        f"launches {launches} (want {want})")
     if launches != want or st["prefill_chunks"] != chunks \
             or 0 in launches.values():
-        raise AssertionError("the LM serving path did not run each paged "
-                             "kernel once per layer and dispatch")
-    del eng
-    torch.cuda.empty_cache()
-    return {"launches": launches, "prefill_ms": prefill_ms,
-            "decode_ms": per_slot, "peak": peak}
+        raise AssertionError(f"[{tag}] the serving path did not run each "
+                             f"paged kernel once per layer and dispatch")
+
+
+def phase_lm_serve(model, params):
+    from repro_torch.kernels import sla2_decode_paged as KP
+    margins = {}
+    run = serve_lm(model, params, {
+        "sla2_decode_paged": KP.sla2_decode_verify,
+        "paged_flash_prefill": KP.paged_flash_prefill}, margins=margins)
+    check_launches("lm-serve", run, model.cfg.n_layers, "sla2_decode_paged",
+                   "decode_steps")
+    log(f"[lm-serve] ms per prefill chunk "
+        f"{[round(t, 1) for t in run['prefill_ms']]}")
+    log(f"[lm-serve] ms per decode step by active slots (median, count): "
+        f"{run['decode_ms']}; peak memory {run['peak'] / 2**30:.2f} GiB")
+    log(f"[lm-serve] tokens: " + "; ".join(
+        f"{uid} (prompt {run['prompts'][uid]}): {toks}"
+        for uid, toks in sorted(run["tokens"].items())))
+    run["margins"] = margins
+    return run
+
+
+def phase_lm_spec(model, params, serve):
+    """Speculative decoding with the SLA2 linear drafter at full width:
+    the lm-serve prompts, greedy tokens held to lm-serve's, and layer 0's
+    W = 4 verify call of the dispatch with the most decoding slots
+    captured, checked against its plain version and timed."""
+    import torch
+    from repro_torch.kernels import sla2_decode_paged as KP
+    from repro_torch.models import attention as A
+    got = {}
+    entry = A.fused_entry_fn
+
+    def capture(eng):
+        def capturing(name):
+            fn = entry(name)
+
+            def run(*args, **kw):
+                n_dec = sum(s.decoding for s in eng._slots.values())
+                if (name == "sla2_decode_verify" and args[0].shape[2] == 4
+                        and n_dec > got.get("n_dec", 0)):
+                    got.update(n_dec=n_dec, verify=(
+                        [_clone(a) for a in args],
+                        {k: _clone(v) for k, v in kw.items()}))
+                return fn(*args, **kw)
+            return run
+        A.fused_entry_fn = capturing
+
+    try:
+        run = serve_lm(model, params, {
+            "sla2_decode_paged": KP.sla2_decode_verify,
+            "paged_flash_prefill": KP.paged_flash_prefill},
+            on_engine=capture, speculative="linear", draft_len=3)
+    finally:
+        A.fused_entry_fn = entry
+    st = run["stats"]
+    check_launches("lm-spec", run, model.cfg.n_layers, "sla2_decode_paged",
+                   "spec_steps")
+    if st["decode_steps"] != 0:
+        raise AssertionError("[lm-spec] a single-token decode dispatch ran")
+    stops = compare_tokens("lm-spec", serve["tokens"], run["tokens"],
+                           serve["margins"])
+    rate = st["spec_accepted"] / max(1, st["spec_drafted"])
+    log(f"[lm-spec] linear drafter, draft_len 3: {st['spec_steps']} verify "
+        f"dispatches, drafted {st['spec_drafted']}, accepted "
+        f"{st['spec_accepted']} (rate {rate:.3f}); tokens equal lm-serve's "
+        f"up to the stops {stops}")
+    log(f"[lm-spec] ms per verify step (draft + verify + commit) by active "
+        f"slots (median, count): {run['decode_ms']}; ms per prefill chunk "
+        f"median {sorted(run['prefill_ms'])[len(run['prefill_ms']) // 2]:.1f}"
+        f"; peak memory {run['peak'] / 2**30:.2f} GiB")
+    if "verify" not in got:
+        raise AssertionError("[lm-spec] no W = 4 verify call was made")
+    args, kw = got.pop("verify")
+    with torch.no_grad():
+        o = KP.sla2_decode_verify(*args, **kw)
+        torch.cuda.synchronize()
+        err = rel_err(o, KP.sla2_decode_verify_plain(*args, **kw))
+        ms = cuda_ms(lambda: KP.sla2_decode_verify(*args, **kw), iters=50)
+        plain = cuda_ms(lambda: KP.sla2_decode_verify_plain(*args, **kw),
+                        iters=2, warmup=1)
+    bound = decode_bound_ms(args)
+    log(f"[lm-spec] layer-0 verify window of the dispatch with the most "
+        f"decoding slots ({got['n_dec']}): q{tuple(args[0].shape)}, K_sel "
+        f"{args[3].shape[-1]}, t_new {args[7].tolist()}: rel max err "
+        f"{err:.3e} (bound 2e-5); kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+        f"bound {bound:.4f} ms (bytes), {bound / ms:.1%} of bound")
+    if not err < BOUNDS["none"]:
+        raise AssertionError("[lm-spec] the verify kernel disagrees with its "
+                             "plain version")
+    del args, kw
+    free_cuda()
+    run.update(stops=stops, rate=rate, w4=(ms, plain, bound, err))
+    return run
+
+
+def dense_model_params(model, params):
+    """The ``mechanism="full"`` qwen3-14b whose params are the SLA2 model's
+    tensors, every one but the ``sla2`` leaves (no second 29.5 GB init)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import build_model
+    fm = build_model(dataclasses.replace(model.cfg, mechanism="full"))
+    layers = [T.LayerParams(lp.ln1, A.AttentionParams(
+        lp.attn.wq, lp.attn.wk, lp.attn.wv, lp.attn.wo, lp.attn.q_norm,
+        lp.attn.k_norm), lp.ln2, lp.mlp) for lp in params.layers]
+    return fm, T.LMParams(params.embed, layers, params.final_norm,
+                          params.lm_head)
+
+
+def dense_visible_pages(t, block_k, max_p, window, prefix_len):
+    """Logical pages a dense decode row of length t sees."""
+    hi = min(max_p, -(-int(t) // block_k))
+    if window is None:
+        return set(range(hi))
+    n_pref = min(hi, -(-prefix_len // block_k))
+    return set(range(n_pref)) | set(
+        range(max(max(int(t) - window, 0) // block_k, n_pref), hi))
+
+
+def dense_bound_ms(q, k_pages, table, t_new, block_k, window=None,
+                   prefix_len=0, scaled=False):
+    """Least time of one dense decode call: every K/V page a slot's rows
+    see, read once (with its row scales under kv_quant), q, the table
+    entries read, t_new and o, over the HBM rate; its operations are a
+    few MFLOP."""
+    b, hkv, w, n_rep, dh = q.shape
+    n = sum(len(set().union(*(dense_visible_pages(
+        t, block_k, table.shape[1], window, prefix_len)
+        for t in t_new[s].tolist()))) for s in range(b))
+    page = hkv * block_k * (dh * k_pages.element_size() + (4 if scaled
+                                                            else 0))
+    nbytes = (2 * n * page + q.numel() * q.element_size() + 4 * n
+              + t_new.numel() * 4 + q.numel() * 4)
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def dense_sdpa_ms(q, k_pages, v_pages, table, t_new):
+    """SDPA over each slot's K/V pages gathered into a contiguous
+    (B, H, L, Dh) copy (the gather not timed), row w of slot b masked to
+    the positions below t_new[b, w]."""
+    import torch
+    b, hkv, w, n_rep, dh = q.shape
+    bk = k_pages.shape[2]
+    n_kv = int(t_new.max())
+    rows = table[:, :-(-n_kv // bk)].long()
+    kk, vv = (torch.repeat_interleave(
+        t[rows].transpose(1, 2).reshape(b, hkv, -1, dh)[:, :, :n_kv],
+        n_rep, dim=1).to(q.dtype) for t in (k_pages, v_pages))
+    qq = q.permute(0, 1, 3, 2, 4).reshape(b, hkv * n_rep, w, dh)
+    mask = (torch.arange(n_kv, device=q.device)[None, None, :]
+            < t_new[:, :, None])[:, None]
+    fn = torch.nn.functional.scaled_dot_product_attention
+    return cuda_ms(lambda: fn(qq, kk, vv, attn_mask=mask), iters=20)
+
+
+def phase_lm_dense_kernel(model, params):
+    """Layer 0's dense decode and W = 4 verify inputs, captured from short
+    4-slot prefills of the full-width dense model, through dense_decode
+    and its plain version; a sweep; CUDA-event times at the lm-serve
+    context lengths beside the plain version, the bound and SDPA."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels import sla2_decode_paged as KP
+    cfg = model.cfg
+    bk, dh, hkv = cfg.block_k, cfg.head_dim, cfg.num_kv_heads
+    n_rep = cfg.num_heads // hkv
+    full = lambda e: sum(s.decoding for s in e._slots.values()) == LM_SLOTS
+    cap = capture_layer0(model, params, {
+        "dense_decode_fused": lambda e, a, k: full(e)})
+    cap.update(capture_layer0(model, params, {
+        "dense_decode_verify": lambda e, a, k: full(e)
+        and a[0].shape[2] == 4}, speculative="ngram", draft_len=3))
+    abs_err = 0.0
+    with torch.no_grad():
+        for name, plain in (("dense_decode_fused", KP.dense_decode_fused_plain),
+                            ("dense_decode_verify",
+                             KP.dense_decode_verify_plain)):
+            args, kw = cap[name]
+            o = getattr(KP, name)(*args, **kw)
+            torch.cuda.synchronize()
+            po = plain(*args, **kw)
+            err = rel_err(o, po)
+            abs_err = max(abs_err, float((o - po).abs().max()))
+            log(f"[lm-dense-kernel] layer-0 {name} q{tuple(args[0].shape)} "
+                f"{args[0].dtype}, pool {tuple(args[1].shape)}, t_new "
+                f"{args[4].tolist()}: rel max err {err:.3e} (bound 2e-5)")
+            if not err < BOUNDS["none"]:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at the main shape")
+    del cap
+    free_cuda()
+
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 25)
+    n_pages, max_p = 600, LM_MAX_LEN // bk
+    pools = {kvq: synthetic_pool(g, n_pages, hkv, bk, dh, kvq)
+             for kvq in ("none", "int8", "fp8")}
+
+    def table_for(b, used):
+        t = torch.zeros(b, max_p, dtype=torch.int32, device=DEV)
+        for s in range(b):
+            t[s, :used] = (torch.randperm(n_pages - 1, generator=g,
+                                          device=DEV)[:used] + 1).int()
+        return t
+
+    n_cases = 0
+    with torch.no_grad():
+        for quant, kvq, w, window, prefix, nr in itertools.product(
+                ("none", "int8", "fp8"), ("none", "int8", "fp8"), (1, 4),
+                (None, 256), (0, 64), (1, 5)):
+            kp, vp, ks, vs = pools[kvq]
+            b = LM_SLOTS
+            q = torch.randn(b, hkv, w, nr, dh, generator=g,
+                            device=DEV).bfloat16()
+            lens = torch.randint(1, 60 * bk, (b,), generator=g, device=DEV)
+            t_new = (lens[:, None] + torch.arange(w, device=DEV) + 1).int()
+            t_new[-1] = 0                           # a row that sees nothing
+            table = table_for(b, 61)
+            kw = dict(block_k=bk, window=window, prefix_len=prefix,
+                      quant_bits=quant, kv_quant=kvq, k_scale=ks, v_scale=vs)
+            o = KP.dense_decode_verify(q, kp, vp, table, t_new, **kw)
+            torch.cuda.synchronize()
+            e = rel_err(o, KP.dense_decode_verify_plain(q, kp, vp, table,
+                                                        t_new, **kw))
+            if not (e < BOUNDS[quant] and float(o[-1].abs().max()) == 0.0):
+                raise AssertionError(
+                    f"dense sweep quant={quant} kv_quant={kvq} W={w} window="
+                    f"{window} prefix={prefix} n_rep={nr}: rel err {e:.3e} > "
+                    f"{BOUNDS[quant]:.0e} or a masked row is not 0")
+            n_cases += 1
+        log(f"[lm-dense-kernel] sweep: {n_cases} cases (quant_bits x kv_quant"
+            f" x W 1/4 x window None/256 x prefix_len 0/64 x n_rep 1/5, "
+            f"ragged lengths, one fully masked slot) within bounds")
+
+        # the lm-serve contexts, mid-generation, on a bf16 pool
+        kp, vp, _, _ = pools["none"]
+        lens = torch.tensor([n + LM_NEW // 2 for n in LM_PROMPTS],
+                            device=DEV)
+        table = table_for(LM_SLOTS, -(-(int(lens.max()) + 4) // bk))
+        times = {}
+        for w in (1, 4):
+            q = torch.randn(LM_SLOTS, hkv, w, n_rep, dh, generator=g,
+                            device=DEV).bfloat16()
+            t_new = (lens[:, None] + torch.arange(w, device=DEV) + 1).int()
+            kw = dict(block_k=bk)
+            o = KP.dense_decode_verify(q, kp, vp, table, t_new, **kw)
+            torch.cuda.synchronize()
+            po = KP.dense_decode_verify_plain(q, kp, vp, table, t_new, **kw)
+            err = rel_err(o, po)
+            abs_err = max(abs_err, float((o - po).abs().max()))
+            if not err < BOUNDS["none"]:
+                raise AssertionError(f"dense_decode at W={w} disagrees with "
+                                     f"its plain version: {err:.3e}")
+            ms = cuda_ms(lambda: KP.dense_decode_verify(q, kp, vp, table,
+                                                        t_new, **kw),
+                         iters=20)
+            plain = cuda_ms(lambda: KP.dense_decode_verify_plain(
+                q, kp, vp, table, t_new, **kw), iters=2, warmup=1)
+            bound = dense_bound_ms(q, kp, table, t_new, bk)
+            lib = dense_sdpa_ms(q, kp, vp, table, t_new)
+            times[w] = (ms, plain, bound, lib)
+            log(f"[lm-dense-kernel] W={w}, B {LM_SLOTS}, t_new "
+                f"{t_new[:, 0].tolist()}: kernel {ms:.4f} ms, plain "
+                f"{plain:.3f} ms, bound {bound:.4f} ms (bytes), "
+                f"{bound / ms:.1%} of bound; SDPA over the gathered K/V "
+                f"{lib:.4f} ms; rel max err {err:.3e}")
+    del pools
+    free_cuda()
+    return {"abs_err": abs_err, "times": times}
+
+
+def phase_lm_dense_serve(model, params):
+    """The dense model served with speculative off, then with the n-gram
+    drafter; launches and tokens checked, the n-gram tokens held to the
+    off run's."""
+    from repro_torch.kernels import sla2_decode_paged as KP
+    counters = {"dense_decode_paged": KP.dense_decode_verify,
+                "paged_flash_prefill": KP.paged_flash_prefill}
+    margins = {}
+    off = serve_lm(model, params, counters, margins=margins)
+    check_launches("lm-dense-serve", off, model.cfg.n_layers,
+                   "dense_decode_paged", "decode_steps")
+    log(f"[lm-dense-serve] ms per prefill chunk "
+        f"{[round(t, 1) for t in off['prefill_ms']]}")
+    log(f"[lm-dense-serve] ms per decode step by active slots (median, "
+        f"count): {off['decode_ms']}; peak memory "
+        f"{off['peak'] / 2**30:.2f} GiB")
+    log(f"[lm-dense-serve] tokens: " + "; ".join(
+        f"{uid} (prompt {off['prompts'][uid]}): {toks}"
+        for uid, toks in sorted(off["tokens"].items())))
+    ng = serve_lm(model, params, counters, speculative="ngram", draft_len=3)
+    st = ng["stats"]
+    check_launches("lm-dense-serve ngram", ng, model.cfg.n_layers,
+                   "dense_decode_paged", "spec_steps")
+    stops = compare_tokens("lm-dense-serve ngram", off["tokens"],
+                           ng["tokens"], margins)
+    rate = st["spec_accepted"] / max(1, st["spec_drafted"])
+    log(f"[lm-dense-serve] ngram drafter, draft_len 3: {st['spec_steps']} "
+        f"verify dispatches, drafted {st['spec_drafted']}, accepted "
+        f"{st['spec_accepted']} (rate {rate:.3f}); ms per verify step by "
+        f"active slots (median, count): {ng['decode_ms']}; peak memory "
+        f"{ng['peak'] / 2**30:.2f} GiB; tokens equal the off run's up to "
+        f"the stops {stops}")
+    return {"off": off, "ngram": ng, "stops": stops, "rate": rate}
+
+
+def phase_lm_spec_context():
+    """At 2 layers, f32 weights and pages, both mechanisms: speculative
+    fused and gather engines (the gather engine fed the fused engine's
+    drafts) give verify-window logits within 1e-3 relative norm error and
+    the greedy tokens of speculative="off"; a pool too small for all
+    slots, with and without swap, gives the same tokens."""
+    import torch
+    from repro_torch.configs.qwen3_14b import config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import make_mixed_requests
+    work = [(2000, 16), (900, 16), (300, 16)]
+    worst = 0.0
+    for mech, spec in (("sla2", "linear"), ("full", "ngram")):
+        model = build_model(config(n_layers=2, dtype="float32",
+                                   mechanism=mech))
+        params = model.init(SEED + 24, device=DEV)
+
+        def run(impl, feed=None, **kw):
+            eng = lm_engine(model, params, max_slots=3, max_len=4096,
+                            paged_impl=impl, page_dtype="float32", **kw)
+            drafts, logits = [], []
+            if eng._spec:
+                draft = eng._draft
+
+                def fed(tokens0, active):
+                    out = feed.pop(0) if feed is not None else draft(
+                        tokens0, active)
+                    drafts.append(out)
+                    return out
+                eng._draft = fed
+                verify = eng.model.decode_verify
+
+                def recorded(p, batch, caches):
+                    lg, caches = verify(p, batch, caches)
+                    act = batch["active"].tolist()
+                    wl = batch["window_len"].tolist()
+                    logits.append(torch.cat([lg[s, :wl[s]].float().cpu()
+                                             for s in range(len(act))
+                                             if act[s]]))
+                    return lg, caches
+                eng.model = dataclasses.replace(eng.model,
+                                                decode_verify=recorded)
+            for r in make_mixed_requests(model.cfg.vocab_size, work,
+                                         seed=SEED + 23):
+                eng.submit(r)
+            out = {r.uid: r.output for r in eng.run_to_completion()}
+            st = dict(eng.stats)
+            del eng
+            free_cuda()
+            return out, drafts, logits, st
+
+        off, _, _, _ = run("fused")
+        kw = dict(speculative=spec, draft_len=3)
+        fused, drafts, f_logits, f_st = run("fused", **kw)
+        gather, _, g_logits, _ = run("gather", feed=list(drafts), **kw)
+        rel = max(float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+                  for a, b in zip(f_logits, g_logits))
+        same = fused == gather == off and len(f_logits) == len(g_logits)
+        worst = max(worst, rel)
+        log(f"[lm-spec-context] {mech} / {spec}, 2 layers, f32: fused vs "
+            f"gather over {len(f_logits)} verify windows: logits rel norm "
+            f"err {rel:.3e} (bound 1e-3); greedy tokens of fused, gather "
+            f"and speculative='off' identical: {same}; accepted "
+            f"{f_st['spec_accepted']} of {f_st['spec_drafted']}")
+        if not (rel < 1e-3 and same and f_st["spec_steps"] > 0):
+            raise AssertionError(f"[lm-spec-context] {mech}: the speculative "
+                                 f"engines disagree")
+        stats = {}
+        for name, extra in (("swap", {}), ("recompute", {"swap_pages": 0})):
+            out, _, _, st = run("fused", num_pages=40, **kw, **extra)
+            stats[name] = st
+            log(f"[lm-spec-context] {mech}, pool of 40 pages, {name}: "
+                f"preemptions {st['preemptions']}, swap-outs "
+                f"{st['swap_outs']}, recomputes {st['recomputes']}; tokens "
+                f"equal the unpreempted run: {out == fused}")
+            if out != fused:
+                raise AssertionError(f"[lm-spec-context] {mech}: preemption "
+                                     f"by {name} changed the tokens")
+        if not (stats["swap"]["swap_outs"] >= 1
+                and stats["recompute"]["recomputes"] >= 1):
+            raise AssertionError("[lm-spec-context] the small pool forced "
+                                 "no swap-out or no recompute")
+        del params, model
+        free_cuda()
+    return worst
 
 
 def phase_lm_context():
@@ -1037,7 +1539,10 @@ def phase_lm_context():
                                      seed=SEED + 23):
             eng.submit(r)
         out = {r.uid: r.output for r in eng.run_to_completion()}
-        return out, seen, own, every, dict(eng.stats)
+        st = dict(eng.stats)
+        del eng
+        free_cuda()
+        return out, seen, own, every, st
 
     fused, f_logits, f_ids, f_every, _ = run("fused")
     gather, g_logits, g_ids, _, _ = run("gather", feed=list(f_every))
@@ -1065,7 +1570,7 @@ def phase_lm_context():
         raise AssertionError("the small pool forced no swap-out or no "
                              "recompute")
     del params
-    torch.cuda.empty_cache()
+    free_cuda()
     return rel
 
 
@@ -1123,14 +1628,14 @@ def main() -> int:
     serve = timed("serve", phase_serve, model, params, reqs)
     bwd = timed("bwd", phase_bwd, model, params, reqs)
     del params
-    torch.cuda.empty_cache()
+    free_cuda()
     timed("context", phase_context)
     train = timed("train", phase_train)
     timed("train-context", phase_train_context)
     timed("stage1", phase_stage1)
     dit_heads = model.cfg.num_heads
     del model, reqs
-    torch.cuda.empty_cache()
+    free_cuda()
 
     from repro_torch.configs import qwen3_14b
     lm_model = build_model(qwen3_14b.config())
@@ -1141,9 +1646,18 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     lm_kern = timed("lm-kernel", phase_lm_kernel, lm_model, lm_params)
     lm_serve = timed("lm-serve", phase_lm_serve, lm_model, lm_params)
+    lm_spec = timed("lm-spec", phase_lm_spec, lm_model, lm_params, lm_serve)
+    dense_model, dense_p = dense_model_params(lm_model, lm_params)
     del lm_params
-    torch.cuda.empty_cache()
+    free_cuda()
+    lm_dkern = timed("lm-dense-kernel", phase_lm_dense_kernel, dense_model,
+                     dense_p)
+    lm_dense = timed("lm-dense-serve", phase_lm_dense_serve, dense_model,
+                     dense_p)
+    del dense_p
+    free_cuda()
     timed("lm-context", phase_lm_context)
+    timed("lm-spec-context", phase_lm_spec_context)
 
     ms, plain, bms, by = kern["timings"][dit_heads]
     no_library = ("no single PyTorch call computes a routed block-sparse "
@@ -1177,25 +1691,49 @@ def main() -> int:
             "bound_ms_f32_cuda_cores": f32, "library_ms": None,
             "library_note": no_library})
     d_abs, d_ms, d_plain, d_bound = lm_kern["decode"]
+    w4_ms, w4_plain, w4_bound, _ = lm_spec["w4"]
+    by_path = {"lm_serve": lm_serve["launches"]["sla2_decode_paged"],
+               "lm_spec_linear": lm_spec["launches"]["sla2_decode_paged"]}
     rows.append({
         "name": "sla2_decode_paged", "route": "cuda",
         "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
         "replaces": "src/repro/kernels/sla2_decode_paged.py:298",
-        "launches": lm_serve["launches"]["sla2_decode_paged"],
-        "launches_by_path": {
-            "lm_serve": lm_serve["launches"]["sla2_decode_paged"]},
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": d_abs, "ms": d_ms, "plain_ms": d_plain,
-        "bound_ms": d_bound, "bound_by": "bytes", "library_ms": None,
+        "bound_ms": d_bound, "bound_by": "bytes", "ms_w4": w4_ms,
+        "plain_ms_w4": w4_plain, "bound_ms_w4": w4_bound,
+        "library_ms": None,
         "library_note": "no PyTorch call computes routed paged attention "
                         "with the linear complement and the alpha combine"})
+    (k_ms, k_plain, k_bound, k_lib), w4 = (lm_dkern["times"][1],
+                                          lm_dkern["times"][4])
+    by_path = {"lm_dense_serve":
+               lm_dense["off"]["launches"]["dense_decode_paged"],
+               "lm_spec_ngram":
+               lm_dense["ngram"]["launches"]["dense_decode_paged"]}
+    rows.append({
+        "name": "dense_decode_paged", "route": "cuda",
+        "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
+        "replaces": "src/repro/kernels/sla2_decode_paged.py:588",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": lm_dkern["abs_err"], "ms": k_ms, "plain_ms": k_plain,
+        "bound_ms": k_bound, "bound_by": "bytes", "ms_w4": w4[0],
+        "plain_ms_w4": w4[1], "bound_ms_w4": w4[2], "library_ms": k_lib,
+        "library_ms_w4": w4[3],
+        "library_note": "scaled_dot_product_attention over each slot's K/V "
+                        "pages gathered into a contiguous copy (gather not "
+                        "timed), rows masked to their lengths"})
     p_abs, p_ms, p_plain, p_bound, p_by, p_f32, p_lib = lm_kern["prefill"]
+    by_path = {name: run["launches"]["paged_flash_prefill"]
+               for name, run in (("lm_serve", lm_serve),
+                                 ("lm_spec_linear", lm_spec),
+                                 ("lm_dense_serve", lm_dense["off"]),
+                                 ("lm_spec_ngram", lm_dense["ngram"]))}
     rows.append({
         "name": "paged_flash_prefill", "route": "cuda",
         "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
         "replaces": "src/repro/kernels/sla2_decode_paged.py:797",
-        "launches": lm_serve["launches"]["paged_flash_prefill"],
-        "launches_by_path": {
-            "lm_serve": lm_serve["launches"]["paged_flash_prefill"]},
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": p_abs, "ms": p_ms, "plain_ms": p_plain,
         "bound_ms": p_bound, "bound_by": p_by,
         "bound_peak": "bf16 tensor cores, 989 TFLOP/s",

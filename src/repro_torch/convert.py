@@ -136,7 +136,8 @@ def lm_params_from_numpy(tree: dict, cfg: T.ModelConfig,
     ``groups["l<k>"]`` has a leading axis of ``n_groups``, and layer
     ``g * len(layer_kinds) + k`` is entry g of sub-key ``l<k>``.  Matrices
     applied as ``x @ w`` (in, out) are transposed into ``nn.Linear``
-    weights (out, in); ``lm_head`` (d_model, vocab) likewise."""
+    weights (out, in); ``lm_head`` (d_model, vocab) likewise.  A
+    ``mechanism="full"`` tree has no ``sla2`` leaves."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -159,10 +160,11 @@ def lm_params_from_numpy(tree: dict, cfg: T.ModelConfig,
             for name in ("q_norm", "k_norm"):
                 if getattr(lp.attn, name) is not None:
                     _set(getattr(lp.attn, name).scale, at(at_[name]["scale"]))
-            _copy_sla2(lp.attn.sla2, {
-                "alpha_logit": at(at_["sla2"]["alpha_logit"]),
-                "router": {k: at(w) for k, w in
-                           (at_["sla2"].get("router") or {}).items()}})
+            if lp.attn.sla2 is not None:       # mechanism="full" has none
+                _copy_sla2(lp.attn.sla2, {
+                    "alpha_logit": at(at_["sla2"]["alpha_logit"]),
+                    "router": {k: at(w) for k, w in
+                               (at_["sla2"].get("router") or {}).items()}})
             for name in ("w_up", "w_down", "w_gate"):
                 _linear(getattr(lp.mlp, name), at(lt["mlp"][name]))
     return params

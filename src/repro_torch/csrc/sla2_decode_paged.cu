@@ -1,10 +1,13 @@
 // Paged attention of LM serving, hand-written for Hopper (sm_90a): the SLA2
-// paged decode (and its multi-row verify window) and the chunked-prefill
-// flash attention over the page pool.
+// paged decode (and its multi-row verify window), the dense paged decode
+// (and its verify window) and the chunked-prefill flash attention over the
+// page pool.
 //
 // Replaces (the Pallas TPU kernels):
 //   sla2_decode   repro/kernels/sla2_decode_paged.py::_decode_kernel, via
 //                 sla2_decode_fused (W = 1) and sla2_decode_verify (W > 1);
+//   dense_decode  repro/kernels/sla2_decode_paged.py::_dense_decode_kernel,
+//                 via dense_decode_fused (W = 1) and dense_decode_verify;
 //   paged_prefill repro/kernels/sla2_decode_paged.py::_prefill_kernel, via
 //                 paged_flash_prefill.
 //
@@ -40,6 +43,25 @@
 // tensor-core fragments mostly empty) with one block per (slot, KV head):
 // 32 blocks fill a quarter of the 132 SMs.  Splitting K_sel across blocks
 // (flash-decoding, with lnum / lden combined as well) is left for later.
+//
+// dense_decode: one block per (slot x KV head, window row), the GQA group's
+// n_rep rows together.  No router: the block walks, in ascending order, only
+// the logical pages its row can see, computed from the row length t (its own
+// token included), the sliding window and the prefix: the prefix pages
+// [0, ceil(prefix_len / bk)) when a window is set, then
+// [floor(max(t - window, 0) / bk), ceil(t / bk)).  A wholly masked page
+// leaves the online softmax unchanged, so skipping the others is exact; no
+// entry of the page table past the row's length is read.  Per page, as in
+// sla2_decode: K / V tiles in shared memory (dequantised under kv_quant),
+// S = q k^T (the QAT tiles under quant_bits), the position mask cols < t and,
+// with a window, cols >= t - window | cols < prefix_len, the same online
+// softmax and P sum order, acc = acc * corr + P V.  The next page's raw K / V
+// are loaded into registers while the current page is computed.  A row that
+// sees nothing writes acc / max(l, 1e-20) = 0.
+// Bound: every visible K / V byte read once (the 8192-token prompt of the
+// qwen3-14b run: 129 pages x 2 x 16 KiB per KV head in bf16); a few MFLOP.
+// Bytes-bound; the first design runs on CUDA cores with one block per row
+// and no split of the pages across blocks (flash-decoding is left for later).
 //
 // paged_prefill: one block per (64-row tile of the n_rep * C stacked query
 // rows, KV head).  Stacked row r is query head h * n_rep + r / C at chunk
@@ -82,6 +104,14 @@ __device__ __forceinline__ float ldf(const int8_t* p, size_t i) {
 }
 __device__ __forceinline__ float ldf(const __nv_fp8_e4m3* p, size_t i) {
   return static_cast<float>(p[i]);
+}
+__device__ __forceinline__ float tof(float x) { return x; }
+__device__ __forceinline__ float tof(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float tof(int8_t x) { return (float)x; }
+__device__ __forceinline__ float tof(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 // Max over the block; every thread must call it.
@@ -418,6 +448,262 @@ sla2_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
 }
 
 // ===========================================================================
+// dense_decode
+// ===========================================================================
+
+struct DenseLayout {
+  size_t qv, qc, kv, kc, vv, vc, sc, red, row, total;
+};
+
+__host__ __device__ inline DenseLayout dense_layout(int n_rep, int bk,
+                                                    int dh) {
+  DenseLayout L;
+  const size_t kst = dh + 1;            // odd stride: conflict-free rows
+  size_t off = 0;                       // in floats
+  L.qv = off;  off += (size_t)n_rep * dh;
+  L.qc = off;  off += (size_t)n_rep * dh;
+  L.kv = off;  off += (size_t)bk * kst;
+  L.kc = off;  off += (size_t)bk * kst;
+  L.vv = off;  off += (size_t)bk * dh;
+  L.vc = off;  off += (size_t)bk * dh;
+  L.sc = off;  off += (size_t)n_rep * (bk + 1);
+  L.red = off; off += 32;
+  L.row = off; off += 3 * RMAX;         // m, l, corr per row
+  L.total = off * sizeof(float);
+  return L;
+}
+
+constexpr int LPT = BKMAX * DMAX / NT;  // tile elements a thread loads
+
+// Start the loads of physical page ph's K and V tiles into registers (the
+// values are first read when the next page is stored to shared memory, so
+// the loads overlap this page's compute).  Returns ph, or -1 for an id
+// outside the pool (nothing loaded).
+template <typename PT>
+__device__ __forceinline__ int fetch_page(const PT* __restrict__ kp,
+                                          const PT* __restrict__ vp, int ph,
+                                          int n_pages, int hkv, int head,
+                                          int ntile, int tid, PT (&kr)[LPT],
+                                          PT (&vr)[LPT]) {
+  if (ph < 0 || ph >= n_pages) return -1;
+  const size_t pbase = ((size_t)ph * hkv + head) * (size_t)ntile;
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    const int e = tid + NT * k;
+    if (e < ntile) {
+      kr[k] = kp[pbase + e];
+      vr[k] = vp[pbase + e];
+    }
+  }
+  return ph;
+}
+
+template <typename QT, typename PT>
+__global__ void __launch_bounds__(NT)
+dense_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
+                    const PT* __restrict__ vp,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
+                    const int* __restrict__ table,
+                    const int* __restrict__ tnew, float* __restrict__ o,
+                    int W, int hkv, int n_rep, int dh, int bk, int max_p,
+                    int window, int prefix_len, int quant, int n_pages,
+                    float sm_scale) {
+  extern __shared__ __align__(16) float sm[];
+  const DenseLayout L = dense_layout(n_rep, bk, dh);
+  float* qv = sm + L.qv;                // q values, [n_rep][dh]
+  float* qc = sm + L.qc;                // q codes (QAT)
+  float* kv = sm + L.kv;                // k values, [bk][dh + 1]
+  float* kc = sm + L.kc;                // k codes (QAT)
+  float* vv = sm + L.vv;                // v values, [bk][dh]
+  float* vc = sm + L.vc;                // v codes (QAT)
+  float* sc = sm + L.sc;                // scores, then P (codes), [n_rep][bk + 1]
+  float* red = sm + L.red;
+  float* m_r = sm + L.row;              // per row: m, l, corr
+  float* l_r = m_r + RMAX;
+  float* c_r = l_r + RMAX;
+
+  const int g = blockIdx.x;             // slot * hkv + kv head
+  const int w = blockIdx.y;             // window row
+  const int b = g / hkv, head = g - b * hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kst = dh + 1, sst = bk + 1;
+  const size_t gw = (size_t)g * W + w;
+  const int t = tnew[(size_t)b * W + w];
+  const int nq = n_rep * dh;
+  const int ntile = bk * dh;
+
+  // ---- q: values, per-tile codes ----
+  const QT* qrow = q + gw * nq;
+  float amax = 0.0f;
+  for (int e = tid; e < nq; e += NT) {
+    const float x = ldf(qrow, e);
+    qv[e] = x;
+    amax = fmaxf(amax, fabsf(x));
+  }
+  if (tid < RMAX) {
+    m_r[tid] = NEG_INF;
+    l_r[tid] = 0.0f;
+    c_r[tid] = 1.0f;
+  }
+  float q_scale = 1.0f;
+  if (quant != Q_NONE) q_scale = tile_scale(quant, block_max(amax, red));
+  else __syncthreads();
+  if (quant != Q_NONE)
+    for (int e = tid; e < nq; e += NT) qc[e] = code(quant, qv[e], q_scale);
+
+  // ---- the pages this row can see, ascending: the prefix pages (with a
+  // window), then [floor(max(t - window, 0) / bk), ceil(t / bk)) ----
+  const int hi = min(max_p, (t + bk - 1) / bk);
+  int n_pref = 0, lo = 0;
+  if (window >= 0) {
+    lo = max(t - window, 0) / bk;
+    n_pref = min(hi, (prefix_len + bk - 1) / bk);
+  }
+  const int lo2 = max(lo, n_pref);
+  const int n_vis = n_pref + max(0, hi - lo2);
+  const int* trow = table + (size_t)b * max_p;
+  auto page_of = [&](int i) { return i < n_pref ? i : lo2 + (i - n_pref); };
+
+  // the next page's raw K/V stay in registers while this page is computed
+  PT kr[LPT], vr[LPT];
+  auto fetch = [&](int i) {
+    return fetch_page(kp, vp, trow[page_of(i)], n_pages, hkv, head, ntile,
+                      tid, kr, vr);
+  };
+
+  constexpr int PAIRS = RMAX * DMAX / NT;
+  float acc[PAIRS];
+#pragma unroll
+  for (int i = 0; i < PAIRS; ++i) acc[i] = 0.0f;
+
+  int ph_next = n_vis > 0 ? fetch(0) : -1;
+  for (int i = 0; i < n_vis; ++i) {
+    const int j = page_of(i);
+    const int ph = ph_next;
+    __syncthreads();                    // previous tiles no longer read
+    if (ph < 0) {                       // uniform: an unmapped entry
+      if (i + 1 < n_vis) ph_next = fetch(i + 1);
+      continue;
+    }
+
+    // ---- K and V tiles from the registers, dequantised codes * row scale
+    const float* ksr = kscale ? kscale + ((size_t)ph * hkv + head) * bk : nullptr;
+    const float* vsr = vscale ? vscale + ((size_t)ph * hkv + head) * bk : nullptr;
+    float kmax = 0.0f, vmax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      const int e = tid + NT * k;
+      if (e < ntile) {
+        const int row = e / dh, col = e - row * dh;
+        float kx = tof(kr[k]), vx = tof(vr[k]);
+        if (ksr) kx = __fmul_rn(kx, ksr[row]);
+        if (vsr) vx = __fmul_rn(vx, vsr[row]);
+        kv[row * kst + col] = kx;
+        vv[e] = vx;
+        kmax = fmaxf(kmax, fabsf(kx));
+        vmax = fmaxf(vmax, fabsf(vx));
+      }
+    }
+    if (i + 1 < n_vis) ph_next = fetch(i + 1);
+    float k_scale = 1.0f, v_scale = 1.0f;
+    if (quant != Q_NONE) {
+      k_scale = tile_scale(quant, block_max(kmax, red));
+      v_scale = tile_scale(quant, block_max(vmax, red));
+      for (int e = tid; e < ntile; e += NT) {
+        const int row = e / dh, col = e - row * dh;
+        kc[row * kst + col] = code(quant, kv[row * kst + col], k_scale);
+        vc[e] = code(quant, vv[e], v_scale);
+      }
+    }
+    __syncthreads();
+
+    // ---- scores for the n_rep x bk tile, with the row's position mask ----
+    const float* qa = quant != Q_NONE ? qc : qv;
+    const float* ka = quant != Q_NONE ? kc : kv;
+    const float qk = __fmul_rn(q_scale, k_scale);
+    for (int e = tid; e < n_rep * bk; e += NT) {
+      const int r = e / bk, kk = e - r * bk;
+      const float* qr = qa + r * dh;
+      const float* kr_ = ka + kk * kst;
+      float s = 0.0f;
+      for (int d = 0; d < dh; ++d) s = fmaf(qr[d], kr_[d], s);
+      s = quant != Q_NONE ? __fmul_rn(__fmul_rn(s, qk), sm_scale)
+                          : __fmul_rn(s, sm_scale);
+      const int col = j * bk + kk;
+      bool vis = col < t;
+      if (window >= 0) vis = vis && (col >= t - window || col < prefix_len);
+      sc[r * sst + kk] = vis ? s : NEG_INF;
+    }
+    __syncthreads();
+
+    // ---- online softmax, one warp per row ----
+    for (int r = warp; r < n_rep; r += NWARP) {
+      float* srow = sc + r * sst;
+      const float s0 = lane < bk ? srow[lane] : NEG_INF;
+      const float s1 = lane + 32 < bk ? srow[lane + 32] : NEG_INF;
+      const float m_prev = m_r[r];
+      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float m_safe = m_new > HALF_NEG ? m_new : 0.0f;
+      const float p0 = s0 > HALF_NEG ? expf(s0 - m_safe) : 0.0f;
+      const float p1 = s1 > HALF_NEG ? expf(s1 - m_safe) : 0.0f;
+      const float psum = warp_sum(__fadd_rn(p0, p1));
+      const float corr = expf((m_prev > HALF_NEG ? m_prev : m_safe) - m_safe);
+      if (lane < bk) srow[lane] = quant == Q_INT8 ? rintf(__fmul_rn(p0, 127.0f)) : p0;
+      if (lane + 32 < bk)
+        srow[lane + 32] = quant == Q_INT8 ? rintf(__fmul_rn(p1, 127.0f)) : p1;
+      if (lane == 0) {
+        l_r[r] = __fadd_rn(__fmul_rn(l_r[r], corr), psum);
+        m_r[r] = m_new;
+        c_r[r] = corr;
+      }
+    }
+    __syncthreads();
+    float pvs = 1.0f;
+    if (quant == Q_INT8) {
+      pvs = __fmul_rn((float)(1.0 / 127.0), v_scale);
+    } else if (quant == Q_FP8) {
+      float pmax = 0.0f;
+      for (int e = tid; e < n_rep * bk; e += NT) {
+        const int r = e / bk, kk = e - r * bk;
+        pmax = fmaxf(pmax, fabsf(sc[r * sst + kk]));
+      }
+      const float p_scale = tile_scale(Q_FP8, block_max(pmax, red));
+      for (int e = tid; e < n_rep * bk; e += NT) {
+        const int r = e / bk, kk = e - r * bk;
+        sc[r * sst + kk] = code(Q_FP8, sc[r * sst + kk], p_scale);
+      }
+      pvs = __fmul_rn(p_scale, v_scale);
+      __syncthreads();
+    }
+
+    // ---- acc = acc * corr + P V ----
+    const float* va = quant != Q_NONE ? vc : vv;
+#pragma unroll
+    for (int i2 = 0; i2 < PAIRS; ++i2) {
+      const int e = tid + NT * i2;
+      if (e >= nq) break;
+      const int r = e / dh, c = e - r * dh;
+      const float* prow = sc + r * sst;
+      float x = 0.0f;
+      for (int kk = 0; kk < bk; ++kk) x = fmaf(prow[kk], va[kk * dh + c], x);
+      if (quant != Q_NONE) x = __fmul_rn(x, pvs);
+      acc[i2] = __fadd_rn(__fmul_rn(acc[i2], c_r[r]), x);
+    }
+  }
+
+  // ---- o = acc / max(l, 1e-20): a row that saw nothing writes 0 ----
+  __syncthreads();
+  float* orow = o + gw * nq;
+#pragma unroll
+  for (int i2 = 0; i2 < PAIRS; ++i2) {
+    const int e = tid + NT * i2;
+    if (e >= nq) break;
+    orow[e] = acc[i2] / fmaxf(l_r[e / dh], 1e-20f);
+  }
+}
+
+// ===========================================================================
 // paged_prefill
 // ===========================================================================
 
@@ -636,6 +922,32 @@ int run_decode(const DecodeArgs& a) {
   return (int)cudaGetLastError();
 }
 
+struct DenseArgs {
+  const void *q, *kp, *vp, *ks, *vs, *table, *tnew;
+  void* o;
+  int b, W, hkv, n_rep, dh, bk, max_p, window, prefix_len, quant, n_pages;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename QT, typename PT>
+int run_dense(const DenseArgs& a) {
+  const size_t smem = dense_layout(a.n_rep, a.bk, a.dh).total;
+  auto kern = dense_decode_kernel<QT, PT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.b * a.hkv, a.W);
+  kern<<<grid, NT, smem, a.stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const PT*>(a.kp),
+      static_cast<const PT*>(a.vp), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.table),
+      static_cast<const int*>(a.tnew), static_cast<float*>(a.o), a.W, a.hkv,
+      a.n_rep, a.dh, a.bk, a.max_p, a.window, a.prefix_len, a.quant,
+      a.n_pages, a.sm_scale);
+  return (int)cudaGetLastError();
+}
+
 struct PrefillArgs {
   const void *q, *kp, *vp, *ks, *vs, *page_row;
   void* o;
@@ -669,6 +981,17 @@ int decode_pool(int pool, const DecodeArgs& a) {
     case P_BF16: return run_decode<QT, __nv_bfloat16>(a);
     case P_I8: return run_decode<QT, int8_t>(a);
     case P_E4M3: return run_decode<QT, __nv_fp8_e4m3>(a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename QT>
+int dense_pool(int pool, const DenseArgs& a) {
+  switch (pool) {
+    case P_F32: return run_dense<QT, float>(a);
+    case P_BF16: return run_dense<QT, __nv_bfloat16>(a);
+    case P_I8: return run_dense<QT, int8_t>(a);
+    case P_E4M3: return run_dense<QT, __nv_fp8_e4m3>(a);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -709,6 +1032,22 @@ extern "C" int sla2_decode(const void* q, const void* kp, const void* vp,
                      dh, bk, k_sel, quant, n_pages, sm_scale,
                      static_cast<cudaStream_t>(stream)};
   return q_bf16 ? decode_pool<__nv_bfloat16>(pool, a) : decode_pool<float>(pool, a);
+}
+
+extern "C" int dense_decode(const void* q, const void* kp, const void* vp,
+                            const void* ks, const void* vs, const void* table,
+                            const void* tnew, void* o, int b, int W, int hkv,
+                            int n_rep, int dh, int bk, int max_p, int window,
+                            int prefix_len, int quant, int q_bf16, int pool,
+                            int n_pages, float sm_scale, void* stream) {
+  if (!shapes_ok(dh, bk, n_rep) || quant < Q_NONE || quant > Q_FP8 ||
+      (pool >= P_I8 && (ks == nullptr || vs == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const DenseArgs a{q,     kp,    vp,         ks,    vs,      table,
+                    tnew,  o,     b,          W,     hkv,     n_rep,
+                    dh,    bk,    max_p,      window, prefix_len, quant,
+                    n_pages, sm_scale, static_cast<cudaStream_t>(stream)};
+  return q_bf16 ? dense_pool<__nv_bfloat16>(pool, a) : dense_pool<float>(pool, a);
 }
 
 extern "C" int paged_prefill(const void* q, const void* kp, const void* vp,

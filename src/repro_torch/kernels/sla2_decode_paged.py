@@ -1,5 +1,6 @@
 """Paged-attention kernels of LM serving: SLA2 decode (and its multi-row
-verify window) and chunked-prefill flash attention over the page pool.
+verify window), dense decode (and its verify window) and chunked-prefill
+flash attention over the page pool.
 
 The K/V cache lives in a pool of physical pages ``(P, Hkv, bk, Dh)``; a
 host-side page table maps each slot's logical blocks to pages (page 0 is
@@ -15,6 +16,14 @@ launches ``sla2_decode`` in ``csrc/sla2_decode_paged.cu``; on a CPU tensor
 it runs ``sla2_decode_verify_plain``, the PyTorch transcription of the
 same loop.  ``sla2_decode_verify.launches`` counts kernel launches of
 both entries.
+
+``dense_decode_verify`` (and ``dense_decode_fused``, its W = 1 case) is
+the decode step of stacks without a router (``mechanism="full"``): every
+page a row can see, by its length, the sliding window and the prefix,
+streams through one online softmax, with the same optional QAT tiles and
+low-bit pools.  On a CUDA tensor it launches ``dense_decode`` from the
+same source (counted in ``dense_decode_verify.launches``); on a CPU
+tensor it runs ``dense_decode_verify_plain``.
 
 ``paged_flash_prefill`` is exact causal flash attention of one slot's
 prefill chunk over its paged history, the GQA group stacked into one
@@ -310,6 +319,186 @@ def _launch_decode(q, k_pages, v_pages, phys, jlog, valid, complete, t_new,
         raise RuntimeError(f"sla2_decode kernel launch failed: CUDA error "
                            f"{err}")
     sla2_decode_verify.launches += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Dense paged decode / verify
+# ---------------------------------------------------------------------------
+
+def _dense_visible(p, t, block_k, window, prefix_len):
+    """Rows (of ``t``, their lengths) that see any position of logical page
+    ``p``: below the length and, with a window, not wholly below the window
+    start unless inside the prefix."""
+    vis = p * block_k < t
+    if window is not None:
+        w_ok = (p + 1) * block_k > t - window
+        if prefix_len:
+            w_ok = w_ok | (p * block_k < prefix_len)
+        vis = vis & w_ok
+    return vis
+
+
+def dense_decode_verify_plain(q, k_pages, v_pages, page_table, t_new, *,
+                              block_k: int, window=None, prefix_len: int = 0,
+                              quant_bits: str = "none",
+                              kv_quant: str = "none", k_scale=None,
+                              v_scale=None):
+    """Plain PyTorch version of the dense decode kernel, vectorised over
+    (B, Hkv, W): the same ascending online softmax over the logical pages,
+    each row updated only on the pages it can see.  Shapes as
+    ``dense_decode_verify``; returns o (B, Hkv, W, n_rep, Dh) f32."""
+    b, hkv, wdw, n_rep, dh = q.shape
+    dev = q.device
+    sm_scale = 1.0 / (dh ** 0.5)
+    qf32 = q.to(torch.float32)
+    if quant_bits != "none":
+        q_c, q_s = quantize_tile(qf32, quant_bits)
+    t = t_new.to(torch.int64)[:, None, :, None]              # (B, 1, W, 1)
+    shape = (b, hkv, wdw, n_rep)
+    acc = torch.zeros(*shape, dh, device=dev)
+    m_i = torch.full(shape, NEG_INF, device=dev)
+    l_i = torch.zeros(shape, device=dev)
+    offs = torch.arange(block_k, device=dev)
+    n_pages = min(page_table.shape[1],
+                  -(-int(t_new.max()) // block_k) if t_new.numel() else 0)
+    for p in range(n_pages):
+        ok = _dense_visible(p, t, block_k, window, prefix_len)  # (B,1,W,1)
+        if not bool(ok.any()):
+            continue
+        ph = page_table[:, p].long()
+        k = _dequant(k_pages[ph], None if k_scale is None else k_scale[ph])
+        v = _dequant(v_pages[ph], None if v_scale is None else v_scale[ph])
+        k, v = k[:, :, None], v[:, :, None]                 # (B,Hkv,1,bk,Dh)
+        if quant_bits == "none":
+            s = torch.matmul(qf32, k.transpose(-1, -2)) * sm_scale
+        else:
+            k_c, k_s = quantize_tile(k, quant_bits)
+            s = qdot(q_c, q_s, k_c, k_s, transpose_b=True) * sm_scale
+        cols = p * block_k + offs
+        vis = cols < t
+        if window is not None:
+            vis = vis & ((cols >= t - window) | (cols < prefix_len))
+        s = torch.where(vis[..., None, :], s, NEG_INF)
+        m_new = torch.maximum(m_i, torch.amax(s, dim=-1))
+        m_safe = torch.where(m_new > _HALF_NEG, m_new, 0.0)
+        pr = torch.exp(s - m_safe[..., None])
+        pr = torch.where(s > _HALF_NEG, pr, 0.0)
+        corr = torch.exp(torch.where(m_i > _HALF_NEG, m_i, m_safe) - m_safe)
+        l_new = l_i * corr + _tree_sum(pr)
+        if quant_bits == "none":
+            o_tmp = torch.matmul(pr, v)
+        elif quant_bits == "int8":
+            p_c = torch.round(pr * INT8_MAX)
+            v_c, v_s = quantize_tile(v, "int8")
+            o_tmp = qdot(p_c, 1.0 / INT8_MAX, v_c, v_s, transpose_b=False)
+        else:
+            p_c, p_s = quantize_tile(pr, "fp8")
+            v_c, v_s = quantize_tile(v, "fp8")
+            o_tmp = qdot(p_c, p_s, v_c, v_s, transpose_b=False)
+        acc = torch.where(ok[..., None], acc * corr[..., None] + o_tmp, acc)
+        m_i = torch.where(ok, m_new, m_i)
+        l_i = torch.where(ok, l_new, l_i)
+    return acc / torch.clamp(l_i, min=1e-20)[..., None]
+
+
+def dense_decode_fused_plain(q, k_pages, v_pages, page_table, t_new, **kw):
+    """``dense_decode_verify_plain`` at W = 1 (shapes of
+    ``dense_decode_fused``)."""
+    return dense_decode_verify_plain(q[:, :, None], k_pages, v_pages,
+                                     page_table, t_new[:, None],
+                                     **kw)[:, :, 0]
+
+
+def dense_decode_verify(q, k_pages, v_pages, page_table, t_new, *,
+                        block_k: int, window=None, prefix_len: int = 0,
+                        quant_bits: str = "none", kv_quant: str = "none",
+                        k_scale=None, v_scale=None):
+    """Dense paged decode over a window of W query rows per slot: every
+    page a row can see streams through one online softmax.
+
+    q          (B, Hkv, W, n_rep, Dh) f32/bf16, queries grouped by KV head
+    k_pages    (P, Hkv, bk, Dh) page pool (f32/bf16, or int8/e4m3 codes
+               with k_scale/v_scale (P, Hkv, bk) f32 under ``kv_quant``)
+    page_table (B, maxP) int32, logical block -> physical page per slot
+    t_new      (B, W) int32 tokens visible to each row, its own included:
+               the position mask cols < t_new is also the causal mask
+               inside the window
+    window     sliding-window size (cols >= t_new - window) or None;
+               prefix_len prefix-LM tokens kept visible through the window
+    returns    o (B, Hkv, W, n_rep, Dh) f32."""
+    if quant_bits not in QUANT_CODES:
+        raise ValueError(f"quant_bits must be one of {tuple(QUANT_CODES)}")
+    _check_pool(k_pages, v_pages, kv_quant, k_scale, v_scale)
+    if q.dim() != 5 or q.dtype not in _Q_DTYPES:
+        raise ValueError("q must be (B, Hkv, W, n_rep, Dh) in f32 or bf16")
+    b, hkv, wdw, n_rep, dh = q.shape
+    if k_pages.shape[1] != hkv or k_pages.shape[2] != block_k \
+            or k_pages.shape[3] != dh:
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)} and block_k {block_k}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or page_table.dtype != torch.int32:
+        raise ValueError("page_table must be int32 (B, maxP)")
+    if tuple(t_new.shape) != (b, wdw) or t_new.dtype != torch.int32:
+        raise ValueError("t_new must be int32 (B, W)")
+    tensors = [q, k_pages, v_pages, page_table, t_new] + [
+        t for t in (k_scale, v_scale) if t is not None]
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devs}")
+    kw = dict(block_k=block_k, window=window, prefix_len=int(prefix_len),
+              quant_bits=quant_bits, kv_quant=kv_quant, k_scale=k_scale,
+              v_scale=v_scale)
+    if q.device.type == "cpu":
+        return dense_decode_verify_plain(q, k_pages, v_pages, page_table,
+                                         t_new, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch_dense(q, k_pages, v_pages, page_table, t_new, **kw)
+
+
+dense_decode_verify.launches = 0
+
+
+def dense_decode_fused(q, k_pages, v_pages, page_table, t_new, **kw):
+    """Single-token dense paged decode: ``dense_decode_verify`` at W = 1.
+    q (B, Hkv, n_rep, Dh); t_new (B,) int32.  Returns o (B, Hkv, n_rep,
+    Dh) f32."""
+    return dense_decode_verify(q[:, :, None], k_pages, v_pages, page_table,
+                               t_new[:, None].contiguous(), **kw)[:, :, 0]
+
+
+def _launch_dense(q, k_pages, v_pages, page_table, t_new, *, block_k,
+                  window, prefix_len, quant_bits, kv_quant, k_scale,
+                  v_scale):
+    from repro_torch.kernels.build import load_library
+    b, hkv, wdw, n_rep, dh = q.shape
+    _kernel_shape_check("dense_decode", dh, block_k, n_rep)
+    q, page_table, t_new = (t.contiguous() for t in (q, page_table, t_new))
+    for t in (k_pages, v_pages, k_scale, v_scale):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("dense_decode kernel needs contiguous pools")
+    o = torch.empty(b, hkv, wdw, n_rep, dh, device=q.device,
+                    dtype=torch.float32)
+    fn = load_library("sla2_decode_paged").dense_decode
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+                 t_new.data_ptr(), o.data_ptr(), b, wdw, hkv, n_rep, dh,
+                 block_k, page_table.shape[1],
+                 -1 if window is None else int(window), prefix_len,
+                 QUANT_CODES[quant_bits], int(q.dtype == torch.bfloat16),
+                 _POOL_CODES[k_pages.dtype], k_pages.shape[0],
+                 1.0 / (dh ** 0.5), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"dense_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    dense_decode_verify.launches += 1
     return o
 
 

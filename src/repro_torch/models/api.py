@@ -12,6 +12,11 @@ dense decoder-only LM (paged serving).
     model.decode_paged(params, batch, caches)   -> (logits, caches)     LM
     model.swap_out(caches, page_row, slot)      -> slot state           LM
     model.swap_in(caches, page_row, slot, st)   -> caches               LM
+    model.decode_verify(params, batch, caches)  -> (logits, caches)     LM
+    model.commit_window(caches, page_table, lengths, accepted, active,
+                        window)                 -> caches               LM
+    model.draft_init(caches, batch)             -> draft states    LM, SLA2
+    model.draft_step(params, batch, states)     -> (logits, states) LM, SLA2
 """
 from __future__ import annotations
 
@@ -44,14 +49,16 @@ class Model:
     swap_out: Optional[Callable] = None
     swap_in: Optional[Callable] = None
     has_slot_state: bool = False
-    # not ported yet (ROADMAP): the prefix cache and speculative decoding
-    extract_totals: Optional[Callable] = None
-    insert_totals: Optional[Callable] = None
-    copy_page: Optional[Callable] = None
+    # speculative decoding: the verify window and its commit; the linear
+    # drafter's handles exist for SLA2 stacks only
     decode_verify: Optional[Callable] = None
     commit_window: Optional[Callable] = None
     draft_init: Optional[Callable] = None
     draft_step: Optional[Callable] = None
+    # not ported yet (ROADMAP): the prefix cache
+    extract_totals: Optional[Callable] = None
+    insert_totals: Optional[Callable] = None
+    copy_page: Optional[Callable] = None
 
     def with_overrides(self, **overrides) -> "Model":
         """Rebuild this model with config fields replaced, e.g.
@@ -98,6 +105,14 @@ def _lm_model(cfg: T.ModelConfig) -> Model:
         return T.init_paged_caches(cfg, batch, num_pages, dtype=dtype,
                                    device=resolve_device(device))
 
+    draft = {}
+    if cfg.mechanism == "sla2":
+        draft = dict(
+            draft_init=lambda c, b: T.draft_init(
+                cfg, c, b["page_table"], b["lengths"], b["active"]),
+            draft_step=lambda p, b, st: T.draft_step(
+                p, cfg, b["token"], st, positions=b["positions"],
+                active=b["active"]))
     return Model(
         kind="lm", cfg=cfg, init=init,
         init_paged_caches=init_paged_caches,
@@ -111,7 +126,14 @@ def _lm_model(cfg: T.ModelConfig) -> Model:
             cfg, c, page_row, slot),
         swap_in=lambda c, page_row, slot, state: T.swap_in_slot(
             cfg, c, page_row, slot, state),
-        has_slot_state=T.has_slot_state(cfg))
+        decode_verify=lambda p, b, c: T.decode_verify(
+            p, cfg, b["tokens"], c, page_table=b["page_table"],
+            lengths=b["lengths"], active=b["active"],
+            window_len=b["window_len"]),
+        commit_window=lambda c, page_table, lengths, accepted, active,
+        window: T.commit_window(cfg, c, page_table, lengths, accepted,
+                                active, window),
+        has_slot_state=T.has_slot_state(cfg), **draft)
 
 
 def build_model(cfg) -> Model:

@@ -1,5 +1,6 @@
-"""Paged SLA2 attention for LM serving: projections with qk-norm and RoPE,
-the page pool, chunked prefill and single-token decode.
+"""Paged attention for LM serving: projections with qk-norm and RoPE, the
+page pool, chunked prefill, single-token decode and the speculative verify
+window with its commit and linear drafting.
 
 The K/V cache lives in a pool of physical pages of ``block_k`` tokens
 (``init_paged_cache``); a host-side page table maps (slot, logical block)
@@ -8,18 +9,24 @@ the pool also keeps one pooled router key per page and per-slot linear
 totals (``h_tot``, ``z_tot``) over the slot's complete blocks.  Every
 function here updates the cache in place and returns it.
 
-Prefill is exact attention of the chunk over the slot's paged history;
-decode routes each (slot, KV head) to its K_sel best pages and runs the
-SLA2 decode (sparse branch over the routed pages, linear complement from
-the totals, alpha combine).  ``paged_impl`` picks the path: 'fused' runs
+Prefill is exact attention of the chunk over the slot's paged history.
+SLA2 decode routes each (slot, KV head) to its K_sel best pages and runs
+the sparse branch over the routed pages, the linear complement from the
+totals and the alpha combine; ``mechanism="full"`` decodes densely over
+every page a row can see.  ``paged_impl`` picks the path: 'fused' runs
 the CUDA kernels of ``kernels/sla2_decode_paged`` (their plain versions
 on a CPU tensor), 'gather' the reference that gathers pages into
 contiguous copies (the parity oracle), 'auto' fused on a CUDA tensor and
 gather on the CPU.
 
-Only ``mechanism="sla2"`` is ported.  'full', 'sla' and 'sparse_only'
-decode densely over the pages; they wait for the dense decode kernel
-(ROADMAP, kernel 5).
+Speculative decoding verifies a window of W tokens per slot in one pass
+(``decode_window_paged``): it writes the window's K/V but commits no SLA2
+block state, which ``commit_paged_window`` folds in for the accepted
+prefix only.  ``linear_draft_state`` / ``linear_draft_attention`` draft
+through the linear branch alone, from a state that never enters the cache.
+
+'sla' and 'sparse_only' need the SLA baseline (``core/sla.py``, not
+ported) and raise.
 """
 from __future__ import annotations
 
@@ -41,9 +48,15 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import sla2_decode_paged as KP
 from repro_torch.models import layers as L
 
-_NOT_PORTED = ("mechanism {!r} is not ported: dense paged decode waits for "
-               "the dense decode kernel (ROADMAP, kernel 5); only 'sla2' "
-               "serves")
+PORTED_MECHANISMS = ("sla2", "full")
+_NOT_PORTED = ("mechanism {!r} is not ported: 'sla' and 'sparse_only' need "
+               "the SLA baseline (core/sla.py, ROADMAP queue 1); 'sla2' and "
+               "'full' serve")
+
+
+def _check_mechanism(cfg) -> None:
+    if cfg.mechanism not in PORTED_MECHANISMS:
+        raise NotImplementedError(_NOT_PORTED.format(cfg.mechanism))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +67,7 @@ class AttentionConfig:
     num_heads: int
     num_kv_heads: int
     head_dim: int
-    mechanism: str = "full"            # only sla2 is ported
+    mechanism: str = "full"            # sla2 | full are ported
     prefix_len: int = 0
     sliding_window: Optional[int] = None
     qk_norm: bool = False
@@ -76,7 +89,8 @@ class AttentionConfig:
 
 
 class AttentionParams(nn.Module):
-    """Projections (``nn.Linear``, weight (out, in)), qk-norms, SLA2."""
+    """Projections (``nn.Linear``, weight (out, in)), qk-norms, and the
+    SLA2 router and alpha table (None for ``mechanism="full"``)."""
 
     def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None, sla2=None):
         super().__init__()
@@ -88,9 +102,8 @@ class AttentionParams(nn.Module):
 def init_attention(generator: torch.Generator, cfg: AttentionConfig,
                    dtype=torch.float32, device=None) -> AttentionParams:
     """One attention layer's params: QKV/output projections, the optional
-    qk-norms and the SLA2 router and alpha table."""
-    if cfg.mechanism != "sla2":
-        raise NotImplementedError(_NOT_PORTED.format(cfg.mechanism))
+    qk-norms and, for SLA2, the router and alpha table."""
+    _check_mechanism(cfg)
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     std = d ** -0.5
     lin = lambda i, o, s: L.linear(generator, i, o, dtype, s, device)
@@ -100,9 +113,10 @@ def init_attention(generator: torch.Generator, cfg: AttentionConfig,
     if cfg.qk_norm:
         p.q_norm = L.init_rmsnorm(dh, dtype, device)
         p.k_norm = L.init_rmsnorm(dh, dtype, device)
-    p.sla2 = sla2lib.init_sla2_params(
-        generator, head_dim=dh, num_heads=h, n_q_blocks=cfg.n_q_blocks,
-        cfg=cfg.sla2_config(), dtype=dtype, device=device)
+    if cfg.mechanism == "sla2":
+        p.sla2 = sla2lib.init_sla2_params(
+            generator, head_dim=dh, num_heads=h, n_q_blocks=cfg.n_q_blocks,
+            cfg=cfg.sla2_config(), dtype=dtype, device=device)
     return p
 
 
@@ -132,27 +146,30 @@ def _repeat_kv(x, n_rep: int):
 def init_paged_cache(cfg: AttentionConfig, num_pages: int, batch: int,
                      dtype=torch.bfloat16, device=None) -> dict:
     """Page pool of one layer: K/V pages (codes with per-row f32 scales
-    under ``kv_quant``), the SLA2 pooled router key of every page (codes
-    and one scale per (page, KV head) under ``kv_quant``) and the per-slot
-    linear totals."""
-    if cfg.mechanism != "sla2":
-        raise NotImplementedError(_NOT_PORTED.format(cfg.mechanism))
+    under ``kv_quant``) and, for SLA2, the pooled router key of every page
+    (codes and one scale per (page, KV head) under ``kv_quant``) and the
+    per-slot linear totals."""
+    _check_mechanism(cfg)
     hkv, dh, bk = cfg.num_kv_heads, cfg.head_dim, cfg.block_k
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    sla2 = cfg.mechanism == "sla2"
     if cfg.kv_quant != "none":
         qdt = ops.kv_pool_dtype(cfg.kv_quant)
         cache = {"k_pages": z((num_pages, hkv, bk, dh), qdt),
                  "v_pages": z((num_pages, hkv, bk, dh), qdt),
                  "k_scale": z((num_pages, hkv, bk), torch.float32),
-                 "v_scale": z((num_pages, hkv, bk), torch.float32),
-                 "pooled_pages": z((num_pages, hkv, dh), qdt),
-                 "pooled_scale": z((num_pages, hkv), torch.float32)}
+                 "v_scale": z((num_pages, hkv, bk), torch.float32)}
+        if sla2:
+            cache["pooled_pages"] = z((num_pages, hkv, dh), qdt)
+            cache["pooled_scale"] = z((num_pages, hkv), torch.float32)
     else:
         cache = {"k_pages": z((num_pages, hkv, bk, dh), dtype),
-                 "v_pages": z((num_pages, hkv, bk, dh), dtype),
-                 "pooled_pages": z((num_pages, hkv, dh), torch.float32)}
-    cache["h_tot"] = z((batch, hkv, dh, dh), torch.float32)
-    cache["z_tot"] = z((batch, hkv, dh), torch.float32)
+                 "v_pages": z((num_pages, hkv, bk, dh), dtype)}
+        if sla2:
+            cache["pooled_pages"] = z((num_pages, hkv, dh), torch.float32)
+    if sla2:
+        cache["h_tot"] = z((batch, hkv, dh, dh), torch.float32)
+        cache["z_tot"] = z((batch, hkv, dh), torch.float32)
     return cache
 
 
@@ -203,8 +220,8 @@ _DENSE_PATHS = {
     "verify": ("dense_decode_verify", "_gather_pages + dense window decode"),
 }
 # (mechanism, phase) -> (fused entry, gather reference), as in the JAX
-# package.  The port holds paged_flash_prefill, sla2_decode_fused and
-# sla2_decode_verify; the dense decode entries wait for kernel 5.
+# package.  The port holds every entry ('sla' and 'sparse_only' raise
+# earlier, at init).
 PAGED_DISPATCH = {
     ("sla2", "prefill"): _DENSE_PATHS["prefill"],
     ("sla2", "decode"): ("sla2_decode_fused", "_sla2_decode_paged gather"),
@@ -212,8 +229,8 @@ PAGED_DISPATCH = {
     **{(m, ph): _DENSE_PATHS[ph]
        for m in ("full", "sla", "sparse_only") for ph in PAGED_PHASES},
 }
-PORTED_ENTRIES = ("paged_flash_prefill", "sla2_decode_fused",
-                  "sla2_decode_verify")
+PORTED_ENTRIES = tuple(sorted({entry for entry, _ in
+                               PAGED_DISPATCH.values()}))
 
 
 def resolve_paged_impl(cfg: AttentionConfig, device) -> str:
@@ -240,11 +257,11 @@ def use_fused(cfg: AttentionConfig, phase: str, device) -> bool:
 
 
 def fused_entry_fn(name: str):
-    """The port's fused entry ``name``; raises for an entry whose kernel is
-    not ported yet (never a substitute)."""
+    """The port's fused entry ``name``; raises for a name that is not one
+    of ``PORTED_ENTRIES`` (never a substitute)."""
     if name not in PORTED_ENTRIES:
-        raise NotImplementedError(
-            f"fused entry {name!r} is not ported yet (ROADMAP, kernel 5)")
+        raise NotImplementedError(f"fused entry {name!r} is not a paged "
+                                  f"kernel entry of the port")
     return getattr(KP, name)
 
 
@@ -388,6 +405,9 @@ def chunk_prefill_paged(params: AttentionParams, cfg: AttentionConfig, x,
         o = torch.einsum("bhnm,bhmd->bhnd", p, v_all)
         o = o.to(x.dtype).transpose(1, 2).reshape(1, c, h * dh)
 
+    if cfg.mechanism != "sla2":
+        return F.linear(o, params.wo.weight), cache
+
     # ---- SLA2 block states of the chunk's blocks, from the page values ----
     t_c = c // bk
     kb = k_eff.to(torch.float32).reshape(t_c, bk, hkv, dh).transpose(1, 2)
@@ -425,10 +445,10 @@ def decode_step_paged(params: AttentionParams, cfg: AttentionConfig, x_t,
     already cached per slot (the new token lands at lengths[b]); active
     (B,) bool.  Inactive rows write to the trash page and give outputs the
     engine ignores.  Returns (o (B, 1, d_model), cache)."""
-    if cfg.mechanism != "sla2":
-        raise NotImplementedError(_NOT_PORTED.format(cfg.mechanism))
+    _check_mechanism(cfg)
     b = x_t.shape[0]
-    h, dh, bk = cfg.num_heads, cfg.head_dim, cfg.block_k
+    h, hkv, dh, bk = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                      cfg.block_k)
     lengths = lengths.long()
     q, k_new, v_new = _project_qkv(params, cfg, x_t, lengths[:, None])
     q = q.transpose(1, 2)                                # (B, H, 1, Dh)
@@ -437,10 +457,48 @@ def decode_step_paged(params: AttentionParams, cfg: AttentionConfig, x_t,
         active, page_table.long().gather(1, cur_blk[:, None])[:, 0], 0)
     cache, _, _ = _store_kv_rows(cache, cfg, phys_w, lengths % bk,
                                  k_new[:, 0], v_new[:, 0])
-    o = _sla2_decode_paged(params, cfg, q, cache, page_table, phys_w,
-                           lengths + 1, active)
+    t_new = lengths + 1
+    if cfg.mechanism == "sla2":
+        o = _sla2_decode_paged(params, cfg, q, cache, page_table, phys_w,
+                               t_new, active)
+    elif use_fused(cfg, "decode", x_t.device):
+        o = fused_entry_fn("dense_decode_fused")(
+            q[:, :, 0].reshape(b, hkv, h // hkv, dh), cache["k_pages"],
+            cache["v_pages"], page_table.to(torch.int32),
+            t_new.to(torch.int32), block_k=bk, window=cfg.sliding_window,
+            prefix_len=cfg.prefix_len, quant_bits=cfg.decode_quant_bits,
+            kv_quant=cfg.kv_quant, k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale"))
+        o = o.reshape(b, h, dh)[:, :, None, :]
+    else:
+        o = _dense_gather_attention(cfg, q, cache, page_table, t_new[:, None])
     o = o.to(x_t.dtype).transpose(1, 2).reshape(b, 1, h * dh)
     return F.linear(o, params.wo.weight), cache
+
+
+def _dense_gather_attention(cfg: AttentionConfig, q, cache, page_table,
+                            t_new):
+    """The gather reference of dense paged decode / verify: dense masked
+    attention of q (B, H, W, Dh) over the slot's gathered pages, row w
+    seeing the positions below t_new[:, w] (and, with a sliding window,
+    not below t_new - window unless inside the prefix).  Returns
+    (B, H, W, Dh) f32."""
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    k_all = _repeat_kv(_kv_gather_pages(cache, "k_pages", page_table), n_rep)
+    v_all = _repeat_kv(_kv_gather_pages(cache, "v_pages", page_table), n_rep)
+    s = true_div(torch.einsum("bhwd,bhmd->bhwm", q.to(torch.float32), k_all),
+                 math.sqrt(cfg.head_dim))
+    pos_k = torch.arange(k_all.shape[2], device=q.device)
+    t = t_new.long()[:, :, None]
+    vis = pos_k[None, None, :] < t                       # (B, W, S)
+    if cfg.sliding_window is not None:
+        sw = pos_k[None, None, :] >= t - cfg.sliding_window
+        if cfg.prefix_len:
+            sw = sw | (pos_k[None, None, :] < cfg.prefix_len)
+        vis = vis & sw
+    s = torch.where(vis[:, None], s, masklib.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhwm,bhmd->bhwd", p, v_all)
 
 
 def _alpha_last(sla2_p, h: int) -> torch.Tensor:
@@ -540,3 +598,286 @@ def _sla2_decode_paged(params: AttentionParams, cfg: AttentionConfig, q,
     a_eff = torch.where(den > 0, a_last, 1.0)
     o = a_eff * o_s + (1.0 - a_eff) * o_l
     return o.reshape(b, h, dh)[:, :, None, :]
+
+
+# ---------------------------------------------------------------------------
+# Multi-token verify window and linear-branch drafting (speculative decoding)
+# ---------------------------------------------------------------------------
+
+def window_span(window: int, block_k: int) -> int:
+    """Most logical blocks a ``window``-token run starting at any offset can
+    touch."""
+    return (window + block_k - 2) // block_k + 1
+
+
+def _span(page_table, lengths, n_span: int, bk: int):
+    """The logical blocks a window starting at ``lengths`` can touch:
+    (span_ids (B, S) clamped to the table, genuine (B, S) not clamped,
+    span_phys (B, S))."""
+    t_n = page_table.shape[1]
+    raw = (lengths.long() // bk)[:, None] + torch.arange(
+        n_span, device=page_table.device)[None, :]
+    genuine = raw < t_n
+    span_ids = torch.clamp(raw, max=t_n - 1)
+    return span_ids, genuine, page_table.long().gather(1, span_ids)
+
+
+def decode_window_paged(params: AttentionParams, cfg: AttentionConfig, x_w,
+                        cache: dict, *, page_table, lengths, active,
+                        window_len):
+    """Verify pass of speculative decoding: W query rows per slot, one call.
+
+    x_w (B, W, d_model) window embeddings: row 0 is the last accepted
+    token, rows 1.. the draft; lengths (B,) tokens already cached (row w
+    lands at position lengths + w); active (B,) bool; window_len (B,)
+    valid rows per slot (rows >= window_len write to the trash page and
+    give outputs the engine ignores).  Writes the whole window's K/V into
+    the slot's pages but commits no SLA2 block state (``commit_paged_window``
+    does, for the accepted prefix).  Returns (y (B, W, d_model), cache)."""
+    _check_mechanism(cfg)
+    b, wdw, _ = x_w.shape
+    h, hkv, dh, bk = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                      cfg.block_k)
+    n_rep = h // hkv
+    max_p = page_table.shape[1]
+    dev = x_w.device
+    lengths = lengths.long()
+    tok_pos = lengths[:, None] + torch.arange(wdw, device=dev)   # (B, W)
+    q, k_new, v_new = _project_qkv(params, cfg, x_w, tok_pos)
+    q = q.transpose(1, 2)                                # (B, H, W, Dh)
+
+    valid_w = (torch.arange(wdw, device=dev)[None, :]
+               < window_len.long()[:, None]) & active[:, None]
+    logical = torch.clamp(tok_pos // bk, max=max_p - 1)
+    phys_w = torch.where(valid_w, page_table.long().gather(1, logical), 0)
+    cache, _, _ = _store_kv_rows(cache, cfg, phys_w, tok_pos % bk, k_new,
+                                 v_new)
+    t_new = tok_pos + 1                                  # (B, W)
+
+    if cfg.mechanism == "sla2":
+        o = _sla2_decode_window(params, cfg, q, cache, page_table, t_new,
+                                lengths)
+        o = o.to(x_w.dtype).reshape(b, wdw, h * dh)
+    elif use_fused(cfg, "verify", dev):
+        o = fused_entry_fn("dense_decode_verify")(
+            q.reshape(b, hkv, n_rep, wdw, dh).transpose(2, 3),
+            cache["k_pages"], cache["v_pages"], page_table.to(torch.int32),
+            t_new.to(torch.int32), block_k=bk, window=cfg.sliding_window,
+            prefix_len=cfg.prefix_len, quant_bits=cfg.decode_quant_bits,
+            kv_quant=cfg.kv_quant, k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale"))
+        o = o.transpose(1, 2).to(x_w.dtype).reshape(b, wdw, h * dh)
+    else:
+        o = _dense_gather_attention(cfg, q, cache, page_table, t_new)
+        o = o.to(x_w.dtype).transpose(1, 2).reshape(b, wdw, h * dh)
+    return F.linear(o, params.wo.weight), cache
+
+
+def _sla2_decode_window(params: AttentionParams, cfg: AttentionConfig, q,
+                        cache, page_table, t_new, lengths):
+    """Per-row SLA2 routing and sparse + linear attention over a W-token
+    window with all block state transient (nothing committed):
+
+      * the pooled router keys of the blocks the window touches are made
+        per row from the page content below the row's length, the value
+        sequential decode would have had in ``pooled_pages`` at that step;
+      * each row's linear totals are the cache totals plus the (h, z) of
+        span blocks that complete earlier in the window;
+      * the position mask ``pos < t_new[row]`` is also the causal mask
+        inside the window.
+
+    q (B, H, W, Dh); t_new (B, W).  Returns (B, W, Hkv, n_rep, Dh) f32."""
+    sla2_p = params.sla2
+    b, h, wdw, dh = q.shape
+    hkv = cfg.num_kv_heads
+    n_rep = h // hkv
+    bk = cfg.block_k
+    t_n = page_table.shape[1]
+    dev = q.device
+    n_span = window_span(wdw, bk)
+    ar_bk = torch.arange(bk, device=dev)
+
+    # ---- transient stats of the blocks the window can touch ----
+    span_ids, genuine, span_phys = _span(page_table, lengths, n_span, bk)
+    kblk = _kv_read(cache, "k_pages", span_phys)         # (B,S,Hkv,bk,Dh)
+    vblk = _kv_read(cache, "v_pages", span_phys)
+    pos_blk = span_ids[:, :, None] * bk + ar_bk          # (B, S, bk)
+    msk = (pos_blk[:, None] < t_new[:, :, None, None]).to(torch.float32)
+    pooled_ws = torch.einsum("bwsk,bshkd->bwshd", msk, kblk) / torch.clamp(
+        msk.sum(-1), min=1.0)[..., None, None]
+    kf_span = phi(kblk)
+    h_span = torch.einsum("bshkd,bshke->bshde", kf_span, vblk)
+    z_span = kf_span.sum(-2)                             # (B, S, Hkv, Dh)
+    cmplt = (genuine[:, None]
+             & ((span_ids[:, None] + 1) * bk <= t_new[:, :, None])
+             ).to(torch.float32)                         # (B, W, S)
+    h_eff = cache["h_tot"][:, None] + torch.einsum("bws,bshde->bwhde",
+                                                   cmplt, h_span)
+    z_eff = cache["z_tot"][:, None] + torch.einsum("bws,bshd->bwhd",
+                                                   cmplt, z_span)
+
+    # ---- route per row: group-shared, transient keys for the span ----
+    rp = sla2_p.router
+    qr = q.to(torch.float32)                             # (B, H, W, Dh)
+    pk = _kv_read(cache, "pooled_pages", page_table.long()).transpose(1, 2)
+    pw = pooled_ws
+    if rp is not None:
+        wq, wk = (rp.proj_q.weight.to(torch.float32),
+                  rp.proj_k.weight.to(torch.float32))
+        qr, pk, pw = F.linear(qr, wq), F.linear(pk, wk), F.linear(pw, wk)
+    qr_g = qr.reshape(b, hkv, n_rep, wdw, dh).mean(dim=2)   # (B,Hkv,W,Dh)
+    sq = _sqrt(dh, qr)
+    scores = torch.einsum("bhwd,bhtd->bwht", qr_g, pk) / sq
+    s_span = torch.einsum("bhwd,bwshd->bwhs", qr_g, pw) / sq
+    blk_ids = torch.arange(t_n, device=dev)
+    for s_i in range(n_span):
+        m = ((blk_ids[None, None, None, :]
+              == span_ids[:, s_i, None, None, None])
+             & genuine[:, s_i, None, None, None])
+        scores = torch.where(m, s_span[:, :, :, s_i:s_i + 1], scores)
+    cur_blk = (t_new - 1) // bk                          # (B, W)
+    scores = torch.where(
+        blk_ids[None, None, None, :] <= cur_blk[:, :, None, None], scores,
+        masklib.NEG_INF)
+    scores = torch.where(
+        blk_ids[None, None, None, :] == cur_blk[:, :, None, None], math.inf,
+        scores)
+    k_sel = max(1, round(cfg.k_frac * t_n))
+    top_vals, idx = torch.topk(scores, k_sel, dim=-1)    # (B, W, Hkv, K)
+    valid = top_vals > masklib.NEG_INF * 0.5
+    pt = page_table.long()[:, None, None, :].expand(b, wdw, hkv, t_n)
+    phys_sel = torch.where(valid, pt.gather(3, idx), 0)
+    completed = (t_new % bk) == 0
+    complete_bound = cur_blk + completed.long()
+    sel_complete = valid & (idx < complete_bound[:, :, None, None])
+
+    if use_fused(cfg, "verify", dev):
+        alpha = _alpha_last(sla2_p, h).reshape(1, hkv, n_rep).expand(
+            b, hkv, n_rep).contiguous()
+        to_k = lambda x: x.transpose(1, 2).to(torch.int32).contiguous()
+        o = fused_entry_fn("sla2_decode_verify")(
+            q.reshape(b, hkv, n_rep, wdw, dh).transpose(2, 3),
+            cache["k_pages"], cache["v_pages"], to_k(phys_sel), to_k(idx),
+            to_k(valid), to_k(sel_complete), t_new.to(torch.int32),
+            h_eff.transpose(1, 2), z_eff.transpose(1, 2), alpha,
+            block_k=bk, quant_bits=cfg.decode_quant_bits,
+            kv_quant=cfg.kv_quant, k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale"))
+        return o.transpose(1, 2)                         # (B,W,Hkv,n_rep,Dh)
+
+    # ---- gather reference ----
+    phys_f = phys_sel.reshape(b * wdw, hkv, k_sel)
+    k_sb = _kv_gather_blocks(cache, "k_pages", phys_f).reshape(
+        b, wdw, hkv, k_sel, bk, dh)
+    v_sb = _kv_gather_blocks(cache, "v_pages", phys_f).reshape(
+        b, wdw, hkv, k_sel, bk, dh)
+    q_g = q.to(torch.float32).reshape(b, hkv, n_rep, wdw, dh).permute(
+        0, 3, 1, 2, 4)                                   # (B, W, Hkv, g, Dh)
+    s = torch.einsum("bwhgd,bwhjkd->bwhgjk", q_g, k_sb) / _sqrt(dh, q_g)
+    pos = idx[..., None] * bk + ar_bk                    # (B, W, Hkv, K, bk)
+    vis = (pos < t_new[:, :, None, None, None]) & valid[..., None]
+    s = torch.where(vis[:, :, :, None], s, masklib.NEG_INF)
+    p = torch.softmax(s.reshape(b, wdw, hkv, n_rep, -1), dim=-1).reshape(
+        s.shape)
+    o_s = torch.einsum("bwhgjk,bwhjkd->bwhgd", p, v_sb)
+
+    qfeat = phi(q).reshape(b, hkv, n_rep, wdw, dh).permute(0, 3, 1, 2, 4)
+    ls = torch.einsum("bwhgd,bwhjkd->bwhgjk", qfeat, phi(k_sb))
+    ls = ls * sel_complete[:, :, :, None, :, None].to(torch.float32)
+    sub_num = torch.einsum("bwhgjk,bwhjkd->bwhgd", ls, v_sb)
+    sub_den = ls.sum(dim=(-1, -2))
+    den_tot = torch.einsum("bwhgd,bwhd->bwhg", qfeat, z_eff)
+    num = torch.einsum("bwhgd,bwhde->bwhge", qfeat, h_eff) - sub_num
+    den = den_tot - sub_den
+    den = torch.where(den > 1e-4 * den_tot + 1e-12, den, 0.0)[..., None]
+    o_l = torch.where(den > 0, num / torch.clamp(den, min=1e-12), 0.0)
+    a_last = torch.sigmoid(_alpha_last(sla2_p, h)).reshape(1, 1, hkv, n_rep,
+                                                           1)
+    a_eff = torch.where(den > 0, a_last, 1.0)
+    return a_eff * o_s + (1.0 - a_eff) * o_l
+
+
+def commit_paged_window(cfg: AttentionConfig, cache: dict, *, page_table,
+                        lengths, accepted, active, window: int) -> dict:
+    """Commit the accepted prefix of a verify window into the SLA2 block
+    state: rewrite the pooled router keys of every block the prefix
+    touches (masked to the new length) and fold newly completed blocks
+    into the per-slot linear totals.  The verify pass already wrote K/V;
+    ``mechanism="full"`` keeps no block state and commits nothing.
+
+    lengths (B,) committed tokens before the window; accepted (B,) rows
+    being committed (0 for slots that sat out); window the window size W
+    the verify ran with."""
+    if cfg.mechanism != "sla2":
+        return cache
+    bk = cfg.block_k
+    lengths, accepted = lengths.long(), accepted.long()
+    new_len = lengths + accepted
+    span_ids, genuine, span_phys = _span(page_table, lengths,
+                                         window_span(window, bk), bk)
+    kblk = _kv_read(cache, "k_pages", span_phys)         # (B,S,Hkv,bk,Dh)
+    vblk = _kv_read(cache, "v_pages", span_phys)
+    pos_blk = span_ids[:, :, None] * bk + torch.arange(bk,
+                                                       device=kblk.device)
+    msk = (pos_blk < new_len[:, None, None]).to(torch.float32)
+    live = genuine & active[:, None] & (accepted > 0)[:, None]
+    has_tok = (msk.sum(-1) > 0) & live                   # (B, S)
+    pooled = torch.einsum("bsk,bshkd->bshd", msk, kblk) / torch.clamp(
+        msk.sum(-1), min=1.0)[..., None, None]
+    upd_phys = torch.where(has_tok, span_phys, 0)
+    cache = _store_pooled(cache, cfg, upd_phys, pooled, has_tok)
+    newc = (live & ((span_ids + 1) * bk <= new_len[:, None])
+            & ((span_ids + 1) * bk > lengths[:, None])).to(torch.float32)
+    kf = phi(kblk)
+    cache["h_tot"] += torch.einsum("bs,bshkd,bshke->bhde", newc, kf, vblk)
+    cache["z_tot"] += torch.einsum("bs,bshkd->bhd", newc, kf)
+    return cache
+
+
+def linear_draft_state(cfg: AttentionConfig, cache: dict, *, page_table,
+                       lengths, active) -> dict:
+    """Draft state of one SLA2 layer: linear-branch totals over everything
+    cached so far, the committed complete-block totals plus the current
+    partial block read from its page.  Kept apart from the cache, so a
+    rejected draft needs no rollback.  Returns {"h": (B, Hkv, Dh, Dh),
+    "z": (B, Hkv, Dh)} f32."""
+    if cfg.mechanism != "sla2":
+        raise ValueError("linear drafting requires mechanism='sla2'")
+    bk = cfg.block_k
+    t_n = page_table.shape[1]
+    lengths = lengths.long()
+    blk0 = torch.clamp(lengths // bk, max=t_n - 1)
+    phys = torch.where(active, page_table.long().gather(1, blk0[:, None])[:, 0],
+                       0)
+    kblk = _kv_read(cache, "k_pages", phys)              # (B, Hkv, bk, Dh)
+    vblk = _kv_read(cache, "v_pages", phys)
+    pos = blk0[:, None] * bk + torch.arange(bk, device=kblk.device)
+    w = ((pos < lengths[:, None]) & active[:, None]).to(
+        torch.float32)[:, None, :, None]
+    kf = phi(kblk) * w
+    return {"h": cache["h_tot"] + torch.einsum("bhkd,bhke->bhde", kf,
+                                               vblk * w),
+            "z": cache["z_tot"] + kf.sum(-2)}
+
+
+def linear_draft_attention(params: AttentionParams, cfg: AttentionConfig,
+                           x_t, state: dict, *, positions, active):
+    """One draft token through the linear branch alone: no page reads and
+    no routing, O(Dh^2) per token against the running totals.  The new
+    token's own phi(k) v joins the state first.  x_t (B, 1, d_model);
+    positions (B,).  Returns (y (B, 1, d_model), new state)."""
+    b = x_t.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k_new, v_new = _project_qkv(params, cfg, x_t, positions[:, None])
+    kf = phi(k_new[:, 0])                                # (B, Hkv, Dh)
+    v0 = v_new[:, 0].to(torch.float32)
+    gate = active[:, None, None]
+    state = {"h": state["h"] + torch.where(
+                 gate[..., None], torch.einsum("bhd,bhe->bhde", kf, v0), 0.0),
+             "z": state["z"] + torch.where(gate, kf, 0.0)}
+    qfeat = phi(q[:, 0]).reshape(b, hkv, h // hkv, dh)
+    num = torch.einsum("bhgd,bhde->bhge", qfeat, state["h"])
+    den = torch.einsum("bhgd,bhd->bhg", qfeat, state["z"])[..., None]
+    o = torch.where(den > 0, num / torch.clamp(den, min=1e-12), 0.0)
+    o = o.reshape(b, 1, h * dh).to(x_t.dtype)
+    return F.linear(o, params.wo.weight), state

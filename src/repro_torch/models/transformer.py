@@ -1,8 +1,9 @@
 """The decoder-only LM of the port: the ``dense`` layer kind (pre-norm
 attention + gated SiLU MLP) in an ``nn.ModuleList``, with its paged
-serving path (chunked prefill, per-slot decode, swap of one slot's
-state).  The reference stacks its layers into scanned ``groups``;
-``convert.lm_params_from_numpy`` unstacks them.
+serving path (chunked prefill, per-slot decode, swap of one slot's state)
+and speculative decoding (the verify window, its commit, and the SLA2
+linear drafter's state and step).  The reference stacks its layers into
+scanned ``groups``; ``convert.lm_params_from_numpy`` unstacks them.
 
 MoE, MLA and recurrent layers (``moe``, ``mla``, ``ssm``, other
 ``layer_kinds``) are not ported yet (ROADMAP) and raise.
@@ -24,10 +25,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One decoder-only architecture: geometry, attention mechanism and
-    masks, SLA2 knobs and the paged-serving switches (the fields of the
-    reference's ModelConfig that serving of a dense SLA2 stack reads; the
-    training knobs and those of other families wait for their slices)."""
+    """One decoder-only architecture: geometry, attention mechanism
+    ('sla2' or 'full') and masks, SLA2 knobs and the paged-serving
+    switches (the fields of the reference's ModelConfig that paged serving
+    of a stack of dense layers reads; the training knobs and those of
+    other families wait for their slices)."""
     name: str = "model"
     n_layers: int = 2
     d_model: int = 256
@@ -195,13 +197,16 @@ def swap_in_slot(cfg: ModelConfig, caches: dict, page_row, slot: int,
 
 
 def _paged_stack(params: LMParams, cfg: ModelConfig, x, caches, mix_fn):
-    """Run the layers with ``mix_fn(layer_params, h, layer_cache)`` as the
-    attention body; returns (final-normed hidden, caches)."""
+    """Run the layers with ``mix_fn(layer_params, h, layer_state)`` ->
+    (y, layer_state) as the attention body; returns (final-normed hidden,
+    {"layers": the returned states})."""
+    layers = []
     for lp, lc in zip(params.layers, caches["layers"]):
-        y, _ = mix_fn(lp.attn, L.rmsnorm(lp.ln1, x), lc)
+        y, lc = mix_fn(lp.attn, L.rmsnorm(lp.ln1, x), lc)
+        layers.append(lc)
         x = x + y
         x = x + L.gated_mlp(lp.mlp, L.rmsnorm(lp.ln2, x))
-    return L.rmsnorm(params.final_norm, x), caches
+    return L.rmsnorm(params.final_norm, x), {**caches, "layers": layers}
 
 
 def prefill_chunk(params: LMParams, cfg: ModelConfig, tokens, caches, *,
@@ -235,3 +240,63 @@ def decode_paged(params: LMParams, cfg: ModelConfig, token_t, caches, *,
 
     x, caches = _paged_stack(params, cfg, x, caches, mix_fn)
     return logits_from_hidden(params, cfg, x)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: verify window, commit, linear drafting
+# ---------------------------------------------------------------------------
+
+def decode_verify(params: LMParams, cfg: ModelConfig, tokens_w, caches, *,
+                  page_table, lengths, active, window_len):
+    """Decode a W-token window for the whole slot batch in one pass.
+    tokens_w (B, W) int: row 0 is the last accepted token, rows 1.. the
+    draft; window_len (B,) valid rows per slot.  Writes the window's K/V;
+    the SLA2 block state waits for ``commit_window``.  Returns (logits
+    (B, W, V), caches)."""
+    acfg = cfg.attention_config()
+    x = _embed(params, cfg, tokens_w)
+
+    def mix_fn(ap, h, lc):
+        return A.decode_window_paged(ap, acfg, h, lc, page_table=page_table,
+                                     lengths=lengths, active=active,
+                                     window_len=window_len)
+
+    x, caches = _paged_stack(params, cfg, x, caches, mix_fn)
+    return logits_from_hidden(params, cfg, x), caches
+
+
+def commit_window(cfg: ModelConfig, caches, page_table, lengths, accepted,
+                  active, window: int):
+    """Commit the accepted prefix of a verify window into every layer's
+    block state (nothing to commit for ``mechanism="full"``)."""
+    acfg = cfg.attention_config()
+    for lc in caches["layers"]:
+        A.commit_paged_window(acfg, lc, page_table=page_table,
+                              lengths=lengths, accepted=accepted,
+                              active=active, window=window)
+    return caches
+
+
+def draft_init(cfg: ModelConfig, caches, page_table, lengths, active):
+    """Per-layer linear draft states (running phi(k) v totals over the
+    whole cached prefix): ``{"layers": [{"h", "z"} of layer i]}``."""
+    acfg = cfg.attention_config()
+    return {"layers": [A.linear_draft_state(acfg, lc, page_table=page_table,
+                                            lengths=lengths, active=active)
+                       for lc in caches["layers"]]}
+
+
+def draft_step(params: LMParams, cfg: ModelConfig, token_t, states, *,
+               positions, active):
+    """One draft decode step through the linear branch only (no page
+    reads).  token_t (B,) int; positions (B,) the draft token's position.
+    Returns (logits (B, V), states)."""
+    acfg = cfg.attention_config()
+    x = _embed(params, cfg, token_t[:, None])
+
+    def mix_fn(ap, h, st):
+        return A.linear_draft_attention(ap, acfg, h, st, positions=positions,
+                                        active=active)
+
+    x, states = _paged_stack(params, cfg, x, states, mix_fn)
+    return logits_from_hidden(params, cfg, x)[:, 0], states

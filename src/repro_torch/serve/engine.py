@@ -5,8 +5,13 @@ offset.  K/V lives in a pool of physical pages of ``block_k`` tokens on
 the device, handed out by a free list (``PageAllocator``); a host-side
 page table maps (slot, logical block) to a page (page 0 is the trash page
 of masked writes).  Each engine step runs at most one ``prefill_chunk``
-of one joining prompt and one single-token decode dispatch for every
-decoding slot, so long prompts interleave with decode.
+of one joining prompt and one decode dispatch for every decoding slot, so
+long prompts interleave with decode.  The dispatch is one token per slot,
+or with ``speculative`` a verify window: a drafter proposes ``draft_len``
+tokens per slot (``serve/speculative.py``: the SLA2 linear branch, or
+prompt lookup over the slot's tokens), one multi-token paged pass
+verifies them, and only the accepted prefix is committed.  Greedy outputs
+are token-identical to ``speculative="off"``.
 
 Admission is optimistic by default: requests are admitted against the
 pages actually outstanding and pages are mapped as sequences grow.  When
@@ -23,9 +28,8 @@ back.  Greedy sampling is an argmax; with ``temperature > 0`` the Gumbel
 noise comes from the engine's numpy generator, as in the reference, so
 both engines draw the same tokens.
 
-Not ported yet (ROADMAP): speculative decoding, the prefix cache and
-sharded serving raise ``ValueError``; ``StaticWaveEngine`` and
-``generate_sequential`` wait.
+Not ported yet (ROADMAP): the prefix cache and sharded serving raise
+``ValueError``; ``StaticWaveEngine`` and ``generate_sequential`` wait.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.quant import true_div
 from repro_torch.models.attention import PAGE_KEYS
+from repro_torch.serve.speculative import (LinearDrafter, NGramDrafter,
+                                           greedy_accept, rejection_sample)
 
 _POOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -79,8 +85,15 @@ class EngineConfig:
     # host swap capacity in pages; None mirrors the device pool, 0 turns
     # swapping off (preemption then always recomputes)
     swap_pages: Optional[int] = None
-    # not ported yet: anything but these defaults raises ValueError
+    # speculative decoding: 'off' advances each slot by one token per
+    # dispatch; 'linear' drafts draft_len tokens through the SLA2 linear
+    # branch (mechanism='sla2' only); 'ngram' drafts by prompt lookup over
+    # the slot's tokens (any stack).  A dispatch then verifies the window
+    # in one pass and advances a slot by 1..draft_len+1 tokens.
     speculative: str = "off"
+    draft_len: int = 3
+    ngram_max: int = 3                 # longest suffix n-gram matched
+    # not ported yet: anything but these defaults raises ValueError
     prefix_cache: bool = False
     mesh: Optional[Any] = None
 
@@ -299,8 +312,7 @@ class ServeEngine:
     def __init__(self, model, ecfg: EngineConfig, device="cuda"):
         if model.decode_paged is None:
             raise ValueError(f"{model.kind} has no paged serving path")
-        for name, off in (("speculative", "off"), ("prefix_cache", False),
-                          ("mesh", None)):
+        for name, off in (("prefix_cache", False), ("mesh", None)):
             if getattr(ecfg, name) != off:
                 raise ValueError(
                     f"EngineConfig.{name}={getattr(ecfg, name)!r} is not "
@@ -331,7 +343,8 @@ class ServeEngine:
         self.swap = SwapPool(num_pages - 1 if ecfg.swap_pages is None
                              else ecfg.swap_pages)
         self.stats = {"preemptions": 0, "swap_outs": 0, "swap_ins": 0,
-                      "recomputes": 0, "engine_steps": 0,
+                      "recomputes": 0, "spec_steps": 0, "spec_drafted": 0,
+                      "spec_accepted": 0, "engine_steps": 0,
                       "prefill_tokens": 0, "prefill_chunks": 0,
                       "decode_steps": 0}
         self._slots: dict = {}                      # slot -> _Slot
@@ -341,6 +354,23 @@ class ServeEngine:
         self._lengths = np.zeros((ecfg.max_slots,), np.int32)
         self._rng = np.random.default_rng(ecfg.seed)
         self.completed: list = []
+        if ecfg.speculative not in ("off", "linear", "ngram"):
+            raise ValueError(f"unknown speculative mode {ecfg.speculative!r}")
+        self._spec = ecfg.speculative != "off"
+        self._drafter = None
+        if self._spec:
+            if ecfg.draft_len < 1:
+                raise ValueError("draft_len must be >= 1")
+            if ecfg.speculative == "linear":
+                if model.draft_init is None:
+                    raise ValueError(
+                        "speculative='linear' requires an SLA2 attention "
+                        f"stack (got mechanism={model.cfg.mechanism!r})")
+                self._drafter = LinearDrafter(model, ecfg.temperature)
+            else:
+                self._drafter = NGramDrafter(model.cfg.vocab_size,
+                                             max_ngram=ecfg.ngram_max,
+                                             temperature=ecfg.temperature)
 
     # ------------------------------------------------------------------
     @property
@@ -390,6 +420,11 @@ class ServeEngine:
         optimistic gate)."""
         if resume is not None and resume.mode == "swap":
             s = resume.slot
+            if s.decoding and self._spec:
+                # a verify step maps pages for its whole window up front
+                blocks = (resume.length + self._window_len(s) - 1) \
+                    // self.page_size + 1
+                return max(s.n_pages, blocks)
             if s.decoding:
                 boundary = resume.length % self.page_size == 0
                 return s.n_pages + (1 if boundary else 0)
@@ -561,7 +596,150 @@ class ServeEngine:
             return False
         return True
 
+    def _window_len(self, s: _Slot) -> int:
+        """Valid rows of a slot's verify window: capped by the remaining
+        budget, or in replay by the teacher-forced tokens left."""
+        w = self.cfg.draft_len + 1
+        if s.replay:
+            return min(w, 1 + len(s.replay))
+        return max(1, min(w, s.budget))
+
     def _decode_step(self) -> None:
+        """One decode dispatch for every decoding slot: one token each, or a
+        verify window with speculative decoding."""
+        if self._spec:
+            return self._decode_step_speculative()
+        return self._decode_step_single()
+
+    def _draft(self, tokens0, active):
+        """Draft ``draft_len`` tokens per active slot with the configured
+        drafter.  Returns numpy (tokens (B, k), logits (B, k, V) or
+        None)."""
+        history = None
+        if getattr(self._drafter, "needs_history", False):
+            history = [None] * self.cfg.max_slots
+            for slot, s in self._slots.items():
+                if active[slot]:
+                    history[slot] = np.concatenate(
+                        [s.tokens, np.asarray(s.req.output or [], np.int32)])
+        return self._drafter.propose(
+            self.params, self.caches, page_table=self._page_table,
+            lengths=self._lengths, active=active, tokens0=tokens0,
+            k=self.cfg.draft_len, rng=self._rng, history=history)
+
+    def _decode_step_speculative(self) -> None:
+        """One multi-token dispatch: draft, verify the window in one paged
+        pass, commit only the accepted prefix (rejected rows' K/V lie
+        beyond the committed length, where no read sees them).  Pages for
+        each slot's whole window are mapped oldest slot first, so a dry
+        pool preempts the youngest slots before their window is verified;
+        they resume from their last committed state."""
+        w = self.cfg.draft_len + 1
+        dec = sorted((s for s, st in self._slots.items() if st.decoding),
+                     key=lambda s: self._slots[s].req.arrival)
+        ready = []
+        for slot in dec:
+            if slot not in self._slots:     # preempted by an older slot
+                continue
+            pos0 = int(self._lengths[slot])
+            wlen = self._window_len(self._slots[slot])
+            if all(self._ensure_page(slot, lg)
+                   for lg in range(pos0 // self.page_size,
+                                   (pos0 + wlen - 1) // self.page_size + 1)):
+                ready.append(slot)
+        if not ready:
+            return
+        tokens = np.zeros((self.cfg.max_slots, w), np.int32)
+        wlens = np.zeros((self.cfg.max_slots,), np.int32)
+        active = np.zeros((self.cfg.max_slots,), bool)
+        draft_slots = []
+        for slot in ready:
+            s = self._slots[slot]
+            wlen = self._window_len(s)
+            tokens[slot, 0] = s.last_token
+            wlens[slot] = wlen
+            active[slot] = True
+            if s.replay:
+                tokens[slot, 1:wlen] = s.replay[:wlen - 1]
+            elif wlen > 1:
+                draft_slots.append(slot)
+        d_logits = None
+        if draft_slots:
+            d_toks, d_logits = self._draft(tokens[:, 0], active)
+            for slot in draft_slots:
+                k_i = int(wlens[slot]) - 1
+                tokens[slot, 1:1 + k_i] = d_toks[slot, :k_i]
+        batch = {"tokens": self._tensor(tokens),
+                 "page_table": self._tensor(self._page_table),
+                 "lengths": self._tensor(self._lengths),
+                 "active": self._tensor(active, torch.bool),
+                 "window_len": self._tensor(wlens)}
+        with torch.no_grad():
+            logits, self.caches = self.model.decode_verify(
+                self.params, batch, self.caches)
+        self.stats["spec_steps"] += 1
+        greedy = self.cfg.temperature <= 0
+        # greedy acceptance needs only the argmax ids; sampled acceptance
+        # reads the window's logits on the host
+        target = (torch.argmax(logits, dim=-1).cpu().numpy() if greedy
+                  else logits.cpu().numpy())
+
+        # ---- acceptance on the host ----
+        accepted = np.zeros((self.cfg.max_slots,), np.int32)
+        plan = {}
+        for slot in ready:
+            s = self._slots[slot]
+            wlen = int(wlens[slot])
+            if s.replay:
+                # teacher-forced rows are right by construction
+                plan[slot] = ("replay", wlen - 1)
+                accepted[slot] = wlen
+                continue
+            k_i = wlen - 1
+            draft = tokens[slot, 1:1 + k_i]
+            if greedy:
+                n_acc = greedy_accept(draft, target[slot, :k_i])
+                emitted = [int(t) for t in draft[:n_acc]] + [
+                    int(target[slot, n_acc])]
+            else:
+                emitted, n_acc = rejection_sample(
+                    draft, None if d_logits is None else d_logits[slot, :k_i],
+                    target[slot, :k_i + 1], temperature=self.cfg.temperature,
+                    rng=self._rng)
+            plan[slot] = ("emit", emitted)
+            accepted[slot] = n_acc + 1
+            self.stats["spec_drafted"] += k_i
+            self.stats["spec_accepted"] += n_acc
+
+        # ---- commit the accepted prefixes, then advance the lengths ----
+        with torch.no_grad():
+            self.caches = self.model.commit_window(
+                self.caches, self._tensor(self._page_table),
+                self._tensor(self._lengths), self._tensor(accepted),
+                self._tensor(active, torch.bool), w)
+        for slot in ready:
+            self._lengths[slot] += int(accepted[slot])
+
+        # ---- emissions and replay bookkeeping ----
+        for slot in ready:
+            s = self._slots[slot]
+            kind, payload = plan[slot]
+            if kind == "replay":
+                del s.replay[:payload]
+                if s.replay:
+                    s.last_token = s.replay.pop(0)
+                else:
+                    # the replay drained inside the window: the next real
+                    # token comes from the last teacher-forced row
+                    s.replay = None
+                    self._emit(slot, int(self._sample(
+                        logits[slot, payload][None])[0]))
+            else:
+                for t in payload:
+                    if not self._emit(slot, t):
+                        break
+
+    def _decode_step_single(self) -> None:
         """One token for every decoding slot.  Pages are served oldest slot
         first, so a dry pool preempts the youngest slots, which drop out of
         this step and resume through the scheduler."""

@@ -11,7 +11,8 @@ without one.  Bounds: 1e-4 relative max error in f32 and 2^-7 (two bf16
 ulps) in bf16 for the backward, whose sums run in another order than the
 plain version's; the int8 forward equals its plain version bit for bit on
 the card (PERF.md), bounded here by 1e-3 (fp8 1e-2).  The paged kernels
-(sla2_decode_paged.cu) are held to 2e-5 with f32 tiles, 1e-3 with int8
+(sla2_decode_paged.cu: sla2_decode, dense_decode, paged_prefill) are held
+to 2e-5 with f32 tiles, 1e-3 with int8
 and 1e-2 with fp8 QAT tiles (an exp that differs by an ulp can flip one
 rounded P code).
 """
@@ -209,9 +210,50 @@ def test_prefill_kernel_matches_plain(card, offset, window, prefix_len,
     assert _rel(o, KP.paged_flash_prefill_plain(q, kp, vp, row, **kw)) < 2e-5
 
 
+@pytest.mark.parametrize("quant,kv_quant,n_rep,w,window,prefix_len,dtype", [
+    ("none", "none", 5, 1, None, 0, "bfloat16"),
+    ("none", "none", 5, 4, None, 0, "bfloat16"),
+    ("none", "none", 2, 3, 256, 64, "float32"),
+    ("int8", "int8", 5, 1, None, 0, "bfloat16"),
+    ("int8", "fp8", 1, 4, 256, 0, "bfloat16"),
+    ("fp8", "fp8", 5, 4, None, 0, "bfloat16"),
+    ("fp8", "none", 2, 1, 256, 64, "float32"),
+    ("none", "int8", 5, 4, 256, 64, "bfloat16")])
+def test_dense_decode_kernel_matches_plain(card, quant, kv_quant, n_rep, w,
+                                           window, prefix_len, dtype):
+    g, dt = card, getattr(torch, dtype)
+    b, hkv, dh, bk, max_p, n_pages = 4, 4, 128, 64, 64, 200
+    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, dt)
+    q = torch.randn(b, hkv, w, n_rep, dh, generator=g, device="cuda").to(dt)
+    table = torch.zeros(b, max_p, dtype=torch.int32, device="cuda")
+    for s in range(b):
+        table[s] = (torch.randperm(n_pages - 1, generator=g,
+                                   device="cuda")[:max_p] + 1).int()
+    base = torch.tensor([3000, 700, 1, 64 * max_p - w], device="cuda")
+    t_new = (base[:, None] + torch.arange(w, device="cuda")).int()
+    t_new[2] = 0                                     # a row that sees nothing
+    kw = dict(block_k=bk, window=window, prefix_len=prefix_len,
+              quant_bits=quant, kv_quant=kv_quant, k_scale=ks, v_scale=vs)
+    before = KP.dense_decode_verify.launches
+    o = KP.dense_decode_verify(q, kp, vp, table, t_new, **kw)
+    torch.cuda.synchronize()
+    assert KP.dense_decode_verify.launches == before + 1
+    want = KP.dense_decode_verify_plain(q, kp, vp, table, t_new, **kw)
+    assert torch.isfinite(o).all() and _rel(o, want) < BOUND[quant]
+    assert float(o[2].abs().max()) == 0.0
+    o1 = KP.dense_decode_fused(q[:, :, 0], kp, vp, table, t_new[:, 0], **kw)
+    torch.cuda.synchronize()
+    assert _rel(o1, want[:, :, 0]) < BOUND[quant]
+
+
 def test_paged_kernels_reject_what_they_do_not_take(card):
     kp = torch.zeros(4, 2, 64, 80, device="cuda", dtype=torch.bfloat16)
     q = torch.zeros(4, 64, 80, device="cuda", dtype=torch.bfloat16)
     row = torch.zeros(4, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="Dh in"):
         KP.paged_flash_prefill(q, kp, kp, row, offset=0, block_k=64, n_rep=2)
+    dq = torch.zeros(1, 2, 1, 2, 80, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh in"):
+        KP.dense_decode_verify(dq, kp, kp, row[None],
+                               torch.ones(1, 1, dtype=torch.int32,
+                                          device="cuda"), block_k=64)

@@ -256,10 +256,13 @@ def test_dispatch_and_what_is_not_ported(ref):
     assert set(TA.PAGED_DISPATCH) == set(JA.PAGED_DISPATCH)
     assert {k: v[0] for k, v in TA.PAGED_DISPATCH.items()} == {
         k: v[0] for k, v in JA.PAGED_DISPATCH.items()}
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        TA.fused_entry_fn("dense_decode_fused")
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        TA.init_attention(torch.Generator(), dataclasses.replace(
-            acfg, mechanism="full"))
+    assert set(TA.PORTED_ENTRIES) == {v[0] for v in JA.PAGED_DISPATCH.values()}
+    assert TA.fused_entry_fn("dense_decode_fused") is not None
+    with pytest.raises(NotImplementedError, match="not a paged kernel"):
+        TA.fused_entry_fn("dense_decode_gather")
+    for mech in ("sla", "sparse_only"):
+        with pytest.raises(NotImplementedError, match="core/sla.py"):
+            TA.init_attention(torch.Generator(), dataclasses.replace(
+                acfg, mechanism=mech))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(tsmoke("qwen3_14b", layer_kinds=("moe",)))

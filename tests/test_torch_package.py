@@ -30,6 +30,15 @@ def _imported_roots(path):
             yield str(node.args[0].value).split(".")[0], node.lineno
 
 
+def test_speculative_modules_are_in_the_import_check():
+    """The modules of the speculative slice are among the files the JAX
+    import check walks."""
+    walked = {os.path.relpath(os.path.join(root, n), PORT)
+              for root, _, names in os.walk(PORT) for n in names}
+    assert {"serve/speculative.py", "serve/engine.py",
+            "models/attention.py", "kernels/sla2_decode_paged.py"} <= walked
+
+
 def test_port_and_chip_smoke_never_import_jax_or_repro():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "profile_dit_step.py"),
@@ -51,6 +60,7 @@ def test_import_leaves_jax_unloaded_and_builds_nothing():
             "repro_torch.train, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.serve.engine, repro_torch.models.transformer, "
             "repro_torch.kernels.sla2_decode_paged, "
+            "repro_torch.serve.speculative, repro_torch.models.api, "
             "repro_torch.configs.qwen3_14b; "
             "from repro_torch.kernels import build; "
             "assert not build._loaded; "

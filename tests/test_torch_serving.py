@@ -232,7 +232,7 @@ def test_engine_refuses_what_it_cannot_serve(ref):
     with pytest.raises(ValueError, match="more pages"):
         small.submit(Request(uid=2, prompt=np.arange(1, 40, dtype=np.int32),
                              max_new_tokens=8))
-    for kw in (dict(speculative="linear"), dict(prefix_cache=True),
+    for kw in (dict(speculative="nonsense"), dict(prefix_cache=True),
                dict(mesh=object()), dict(admission="eager")):
         with pytest.raises(ValueError):
             ServeEngine(tm, EngineConfig(**kw), device="cpu")

@@ -7,11 +7,17 @@ CUDA card.  Four prompts are prefilled until every slot decodes; one
 decode step (4 active slots) is then recorded under ``torch.profiler``,
 and one prefill chunk of a fifth prompt at offset 1024 after a fourth slot
 has finished.  For each it prints the host wall time, the device time by
-kernel and by group (the two paged kernels, GEMMs, gathers, the rest) and
-the device's idle share of the wall.
+kernel and by group (the paged kernels, GEMMs, gathers, the rest) and the
+device's idle share of the wall.
 
-    python3 tools/profile_lm_step.py
+    python3 tools/profile_lm_step.py [--mechanism sla2|full]
+                                     [--speculative off|linear|ngram]
+
+``--mechanism full`` serves the dense model (the dense decode kernel);
+``--speculative`` makes the recorded decode step a speculative one
+(draft_len 3): drafting, the W = 4 verify pass and the commit.
 """
+import argparse
 import os
 import sys
 import time
@@ -23,6 +29,8 @@ def _group(name: str) -> str:
     low = name.lower()
     if "sla2_decode" in low:
         return "sla2_decode kernel"
+    if "dense_decode" in low:
+        return "dense_decode kernel"
     if "paged_prefill" in low:
         return "paged_prefill kernel"
     if any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "cublas",
@@ -63,6 +71,11 @@ def _report(title, prof, wall_ms):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mechanism", choices=("sla2", "full"), default="sla2")
+    ap.add_argument("--speculative", choices=("off", "linear", "ngram"),
+                    default="off")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_lm_step: needs a CUDA card", file=sys.stderr)
@@ -77,15 +90,24 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.DEV = "cuda"
-    model = build_model(config())
+    model = build_model(config(mechanism=args.mechanism))
     params = model.init(chip_smoke.SEED, device="cuda")
-    eng = chip_smoke.lm_engine(model, params)
-    work = [(1024, 24), (1536, 64), (1536, 64), (1536, 64), (2048, 8)]
+    spec = ({} if args.speculative == "off"
+            else {"speculative": args.speculative, "draft_len": 3})
+    eng = chip_smoke.lm_engine(model, params, **spec)
+    print(f"qwen3-14b mechanism={args.mechanism} speculative="
+          f"{args.speculative} on {torch.cuda.get_device_name(0)}")
+    # request 0 drains first; a speculative step emits up to 4 tokens, so
+    # it gets a larger budget there to still be decoding when slot 4 joins
+    first = 24 if args.speculative == "off" else 96
+    work = [(1024, first), (1536, 128), (1536, 128), (1536, 128), (2048, 8)]
     reqs = make_mixed_requests(model.cfg.vocab_size, work,
                                seed=chip_smoke.SEED)
     for r in reqs[:4]:
         eng.submit(r)
     while sum(s.decoding for s in eng._slots.values()) < 4:
+        if eng.completed:
+            raise RuntimeError("a request finished before 4 slots decoded")
         eng.step()
     eng.step()                                   # warm-up at 4 slots
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -95,7 +117,10 @@ def main() -> int:
         eng._decode_step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ok = _report("decode step (4 active slots)", prof, wall)
+    kind = ("decode step" if args.speculative == "off" else
+            f"speculative step ({args.speculative} draft of 3, W = 4 verify, "
+            f"commit)")
+    ok = _report(f"{kind} (4 active slots)", prof, wall)
     while len(eng.completed) < 1:                # request 0 drains
         eng.step()
     eng.submit(reqs[4])
