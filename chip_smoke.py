@@ -10,7 +10,8 @@ run outside a checkout of the repository; each prints its wall time):
 
  1. device   the card's name and power limit (nvidia-smi);
  2. build    every CUDA source in src/repro_torch/csrc, one nvcc each,
-             all started together;
+             all started together; registers, spills and shared memory
+             of the paged prefill and dense decode kernels;
  3. kernel   full-width wan-dit-1.3b (random weights from a seed, with the
              zero-initialised adaLN / output tensors filled with seeded
              N(0, 0.02^2)); layer 0's q, k, v of one 32768-token request
@@ -51,12 +52,13 @@ run outside a checkout of the repository; each prints its wall time):
              seed), once the DiT phases have freed their memory: layer 0's
              decode inputs (routed pages, totals, alpha) and a mid-prompt
              prefill chunk, captured from a short 4-slot prefill, go
-             through the paged kernels (sla2_decode_paged.cu: sla2_decode,
-             paged_prefill) and their plain versions; then a sweep over
+             through the paged kernels (sla2_decode_paged.cu: sla2_decode;
+             paged_prefill.cu) and their plain versions; then a sweep over
              quant_bits x kv_quant x n_rep x W (decode) and offset x window
-             x prefix_len x kv_quant (prefill); CUDA-event times beside the
-             plain versions, the bounds and, for prefill, SDPA over the
-             gathered K/V;
+             x prefix_len x kv_quant (prefill at offsets 0, 1024 and 7680,
+             the largest error logged); CUDA-event times beside the
+             plain versions, the bounds and, for prefill at offsets 1024
+             and 7680, SDPA over the gathered K/V;
 11. lm-serve ServeEngine(max_slots=4, max_len=32768, prefill_chunk=512,
              paged_impl="fused") serves four seeded prompts of 8192, 3000,
              1000 and 200 tokens, 32 new tokens each, the fourth submitted
@@ -83,8 +85,11 @@ run outside a checkout of the repository; each prints its wall time):
              (sla2_decode_paged.cu) and its plain version; a sweep over
              quant_bits x kv_quant x W x window x prefix_len x n_rep with
              a fully masked slot; CUDA-event times at the lm-serve context
-             lengths (B 4, W 1 and 4) beside the plain version, the bytes
-             bound and SDPA over the gathered K/V;
+             lengths (B 4, W 1 and 4, with the pages per split of each
+             slot; kernel and SDPA timed both as a loop of calls and as
+             calls replayed from a CUDA graph, since the wrapper's host
+             time per call can exceed the kernel's) beside the plain
+             version, the bytes bound and SDPA over the gathered K/V;
 15. lm-dense-serve  the dense model through the lm-serve engine and
              prompts, speculative="off" (launches dense_decode = 40 x
              decode dispatches) and then "ngram", draft_len=3 (40 x verify
@@ -132,6 +137,52 @@ def log(*args):
     print(*args, flush=True)
 
 
+PAGED_KERNELS = ("prefill_tc_kernel", "prefill_f32_kernel",
+                 "dense_split_kernel", "dense_combine_kernel",
+                 "dense_decode_kernel")
+
+
+def kernel_resources(report):
+    """{kernel: 'N registers, spills, static smem'} from ptxas -v, the
+    names demangled by c++filt where the machine has it."""
+    import re
+    import shutil
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = []
+        elif cur and ("spill" in line or "registers" in line):
+            out[cur].append(line.split(":", 1)[-1].strip())
+    names = list(out)
+    if names and shutil.which("c++filt"):
+        shown = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        names = [n.replace("(anonymous namespace)::", "") for n in shown]
+    return {n: "; ".join(v) for n, v in zip(names, out.values())}
+
+
+def log_paged_smem():
+    """Dynamic shared memory per block of the redesigned paged kernels at
+    qwen3-14b's shapes (Dh 128, pages of 64 rows, a bf16 pool)."""
+    import ctypes
+
+    from repro_torch.kernels.build import load_library
+    pre = load_library("paged_prefill").paged_prefill_smem
+    dense = load_library("sla2_decode_paged").dense_split_smem
+    for fn in (pre, dense):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    for off in (2 * LM_CHUNK, LM_PROMPTS[0] - LM_CHUNK):
+        n_pg = -(-(off + LM_CHUNK) // 64)
+        log(f"[build] prefill_tc_kernel at offset {off}: "
+            f"{pre(128, 64, 2, n_pg)} bytes of dynamic shared memory")
+    for w in (1, 4):
+        log(f"[build] dense_split_kernel at W {w}: "
+            f"{dense(5 * w, 64, 128, 2)} bytes of dynamic shared memory")
+
+
 def rel_err(a, b):
     a, b = a.float(), b.float()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -149,6 +200,20 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps=20, iters=5):
+    """Device time of one call of fn: reps calls captured in one CUDA graph
+    and replayed, so the host's time to issue a call (a wrapper's Python
+    checks and allocations) is not counted where it exceeds the kernel's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(g.replay, iters) / reps
 
 
 def perturb_(params, std=0.02, seed=SEED + 1):
@@ -897,10 +962,11 @@ def phase_lm_kernel(model, params):
         log(f"[lm-kernel] decode sweep: {n_cases} cases (quant_bits x "
             f"kv_quant x n_rep 1/5 x W 1/4, ragged t_new, ~15% invalid "
             f"entries, complete flags) within bounds")
-        n_pre = 0
+        n_pre, pre_err = 0, 0.0
         c, max_p, n_rep = LM_CHUNK, LM_MAX_LEN // bk, cfg.num_heads // hkv
         for off, window, prefix, kvq in itertools.product(
-                (0, 2 * c), (None, 256), (0, 48), ("none", "int8", "fp8")):
+                (0, 2 * c, 15 * c), (None, 256), (0, 48),
+                ("none", "int8", "fp8")):
             kp, vp, ks, vs = synthetic_pool(g, n_pages, hkv, bk, dh, kvq)
             sq = torch.randn(cfg.num_heads, c, dh, generator=g,
                              device=DEV).bfloat16()
@@ -913,15 +979,17 @@ def phase_lm_kernel(model, params):
                       v_scale=vs)
             so = KP.paged_flash_prefill(sq, kp, vp, row, **kw)
             torch.cuda.synchronize()
-            e = rel_err(so, KP.paged_flash_prefill_plain(sq, kp, vp, row,
-                                                         **kw))
+            po = KP.paged_flash_prefill_plain(sq, kp, vp, row, **kw)
+            e = rel_err(so, po)
             if not e < BOUNDS["none"]:
                 raise AssertionError(
                     f"prefill sweep offset={off} window={window} prefix="
                     f"{prefix} kv_quant={kvq}: rel err {e:.3e} > 2e-5")
+            pre_err = max(pre_err, e)
             n_pre += 1
-        log(f"[lm-kernel] prefill sweep: {n_pre} cases (offset 0/1024 x "
-            f"window None/256 x prefix_len 0/48 x kv_quant) within 2e-5")
+        log(f"[lm-kernel] prefill sweep: {n_pre} cases (offset 0/1024/7680 "
+            f"x window None/256 x prefix_len 0/48 x kv_quant) within 2e-5; "
+            f"max rel err {pre_err:.3e}")
 
         d_ms = cuda_ms(lambda: KP.sla2_decode_fused(*dargs, **dkw), iters=50)
         d_plain = cuda_ms(lambda: KP.sla2_decode_fused_plain(*dargs, **dkw),
@@ -952,7 +1020,10 @@ def phase_lm_kernel(model, params):
         lkw = dict(pkw, offset=long_off)
         l_ms = cuda_ms(lambda: KP.paged_flash_prefill(lq, pargs[1], pargs[2],
                                                       lrow, **lkw), iters=5)
-        l_ops, _ = prefill_work(lq, lrow, long_off, bk, pkw["n_rep"], None, 0)
+        l_ops, l_bytes = prefill_work(lq, lrow, long_off, bk, pkw["n_rep"],
+                                      None, 0)
+        l_bound = max(l_ops / PEAK_BF16_OPS, l_bytes / PEAK_BYTES) * 1e3
+        l_lib = sdpa_ms(lq, pargs[1], pargs[2], lrow, long_off, pkw["n_rep"])
     log(f"[lm-kernel] decode: kernel {d_ms:.4f} ms, plain {d_plain:.3f} ms, "
         f"bound {d_bound:.4f} ms (bytes), {d_bound / d_ms:.1%} of bound; "
         f"library: none")
@@ -962,12 +1033,15 @@ def phase_lm_kernel(model, params):
         f"CUDA cores), {p_bound / p_ms:.1%} of bound; SDPA over the gathered "
         f"K/V {p_lib:.3f} ms")
     log(f"[lm-kernel] prefill at offset {long_off}: kernel {l_ms:.3f} ms, "
-        f"bound {l_ops / PEAK_BF16_OPS * 1e3:.4f} ms (bf16 tensor cores; "
-        f"{l_ops / PEAK_F32_OPS * 1e3:.3f} ms on f32 CUDA cores)")
+        f"bound {l_bound:.4f} ms (bf16 tensor cores; "
+        f"{l_ops / PEAK_F32_OPS * 1e3:.3f} ms on f32 CUDA cores), "
+        f"{l_bound / l_ms:.1%} of bound; SDPA over the gathered K/V "
+        f"{l_lib:.3f} ms")
     del got, dargs, pargs
     free_cuda()
     return {"decode": (d_abs, d_ms, d_plain, d_bound),
-            "prefill": (p_abs, p_ms, p_plain, p_bound, p_by, t_f32, p_lib)}
+            "prefill": (p_abs, p_ms, p_plain, p_bound, p_by, t_f32, p_lib),
+            "prefill_long": (l_ms, l_bound, l_lib), "sweep_err": pre_err}
 
 
 def bf16_resolution(x: float) -> float:
@@ -1247,7 +1321,8 @@ def dense_bound_ms(q, k_pages, table, t_new, block_k, window=None,
 def dense_sdpa_ms(q, k_pages, v_pages, table, t_new):
     """SDPA over each slot's K/V pages gathered into a contiguous
     (B, H, L, Dh) copy (the gather not timed), row w of slot b masked to
-    the positions below t_new[b, w]."""
+    the positions below t_new[b, w]; timed as the kernel is: (a loop of
+    calls, calls replayed from a CUDA graph)."""
     import torch
     b, hkv, w, n_rep, dh = q.shape
     bk = k_pages.shape[2]
@@ -1260,7 +1335,8 @@ def dense_sdpa_ms(q, k_pages, v_pages, table, t_new):
     mask = (torch.arange(n_kv, device=q.device)[None, None, :]
             < t_new[:, :, None])[:, None]
     fn = torch.nn.functional.scaled_dot_product_attention
-    return cuda_ms(lambda: fn(qq, kk, vv, attn_mask=mask), iters=20)
+    call = lambda: fn(qq, kk, vv, attn_mask=mask)
+    return cuda_ms(call, iters=50), graph_ms(call)
 
 
 def phase_lm_dense_kernel(model, params):
@@ -1362,19 +1438,27 @@ def phase_lm_dense_kernel(model, params):
             if not err < BOUNDS["none"]:
                 raise AssertionError(f"dense_decode at W={w} disagrees with "
                                      f"its plain version: {err:.3e}")
-            ms = cuda_ms(lambda: KP.dense_decode_verify(q, kp, vp, table,
-                                                        t_new, **kw),
-                         iters=20)
+            call = lambda: KP.dense_decode_verify(q, kp, vp, table, t_new,
+                                                  **kw)
+            ms, ms_graph = cuda_ms(call, iters=50), graph_ms(call)
             plain = cuda_ms(lambda: KP.dense_decode_verify_plain(
                 q, kp, vp, table, t_new, **kw), iters=2, warmup=1)
             bound = dense_bound_ms(q, kp, table, t_new, bk)
-            lib = dense_sdpa_ms(q, kp, vp, table, t_new)
-            times[w] = (ms, plain, bound, lib)
+            lib, lib_graph = dense_sdpa_ms(q, kp, vp, table, t_new)
+            wg, n_split = KP.dense_split_shape(LM_SLOTS, hkv, w, n_rep,
+                                               max_p, KP.sm_count(q.device))
+            pps = KP.dense_split_pages(t_new, bk, max_p, n_split)
+            times[w] = (ms, plain, bound, lib, pps, ms_graph, lib_graph)
             log(f"[lm-dense-kernel] W={w}, B {LM_SLOTS}, t_new "
-                f"{t_new[:, 0].tolist()}: kernel {ms:.4f} ms, plain "
+                f"{t_new[:, 0].tolist()}: kernel {ms:.4f} ms in a loop of "
+                f"calls ({ms_graph:.4f} ms from a CUDA graph), plain "
                 f"{plain:.3f} ms, bound {bound:.4f} ms (bytes), "
-                f"{bound / ms:.1%} of bound; SDPA over the gathered K/V "
-                f"{lib:.4f} ms; rel max err {err:.3e}")
+                f"{bound / ms:.1%} of bound ({bound / ms_graph:.1%} from the "
+                f"graph); SDPA over the gathered K/V {lib:.4f} ms "
+                f"({lib_graph:.4f} ms from a CUDA graph); rel max err "
+                f"{err:.3e}; {n_split} splits "
+                f"per (slot, KV head), pages per split by slot {pps}, "
+                f"{wg} window rows per block")
     del pools
     free_cuda()
     return {"abs_err": abs_err, "times": times}
@@ -1602,9 +1686,10 @@ def main() -> int:
     log(f"[build] {sorted(build.sources())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kern, res in kernel_resources(rep).items():
+            if any(k in kern for k in PAGED_KERNELS):
+                log(f"[build] {name}: {kern}: {res}")
+    log_paged_smem()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1705,8 +1790,8 @@ def main() -> int:
         "library_ms": None,
         "library_note": "no PyTorch call computes routed paged attention "
                         "with the linear complement and the alpha combine"})
-    (k_ms, k_plain, k_bound, k_lib), w4 = (lm_dkern["times"][1],
-                                          lm_dkern["times"][4])
+    (k_ms, k_plain, k_bound, k_lib, k_pps, k_graph, k_lib_graph), w4 = (
+        lm_dkern["times"][1], lm_dkern["times"][4])
     by_path = {"lm_dense_serve":
                lm_dense["off"]["launches"]["dense_decode_paged"],
                "lm_spec_ngram":
@@ -1719,11 +1804,18 @@ def main() -> int:
         "max_abs_err": lm_dkern["abs_err"], "ms": k_ms, "plain_ms": k_plain,
         "bound_ms": k_bound, "bound_by": "bytes", "ms_w4": w4[0],
         "plain_ms_w4": w4[1], "bound_ms_w4": w4[2], "library_ms": k_lib,
-        "library_ms_w4": w4[3],
+        "library_ms_w4": w4[3], "pages_per_split": k_pps,
+        "ms_graph": k_graph, "ms_w4_graph": w4[5],
+        "library_ms_graph": k_lib_graph, "library_ms_w4_graph": w4[6],
+        "timing": "ms: a loop of 50 wrapper calls between CUDA events, as "
+                  "the other kernels; *_graph: 20 calls replayed from a "
+                  "CUDA graph (device time without the host's issue "
+                  "time), kernel and library alike",
         "library_note": "scaled_dot_product_attention over each slot's K/V "
                         "pages gathered into a contiguous copy (gather not "
                         "timed), rows masked to their lengths"})
     p_abs, p_ms, p_plain, p_bound, p_by, p_f32, p_lib = lm_kern["prefill"]
+    l_ms, l_bound, l_lib = lm_kern["prefill_long"]
     by_path = {name: run["launches"]["paged_flash_prefill"]
                for name, run in (("lm_serve", lm_serve),
                                  ("lm_spec_linear", lm_spec),
@@ -1731,13 +1823,16 @@ def main() -> int:
                                  ("lm_spec_ngram", lm_dense["ngram"]))}
     rows.append({
         "name": "paged_flash_prefill", "route": "cuda",
-        "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
+        "source": "src/repro_torch/csrc/paged_prefill.cu",
         "replaces": "src/repro/kernels/sla2_decode_paged.py:797",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": p_abs, "ms": p_ms, "plain_ms": p_plain,
         "bound_ms": p_bound, "bound_by": p_by,
         "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
         "bound_ms_f32_cuda_cores": p_f32, "library_ms": p_lib,
+        "offset": 2 * LM_CHUNK, "ms_long": l_ms, "bound_ms_long": l_bound,
+        "library_ms_long": l_lib, "offset_long": LM_PROMPTS[0] - LM_CHUNK,
+        "sweep_max_rel_err": lm_kern["sweep_err"],
         "library_note": "scaled_dot_product_attention over the K/V pages "
                         "gathered into a contiguous copy (gather not timed) "
                         "with the offset-causal mask"})

@@ -1,15 +1,13 @@
-// Paged attention of LM serving, hand-written for Hopper (sm_90a): the SLA2
-// paged decode (and its multi-row verify window), the dense paged decode
-// (and its verify window) and the chunked-prefill flash attention over the
-// page pool.
+// Paged decode attention of LM serving, hand-written for Hopper (sm_90a):
+// the SLA2 paged decode (and its multi-row verify window) and the dense
+// paged decode (and its verify window).  The chunked-prefill flash
+// attention over the same pool is in paged_prefill.cu.
 //
 // Replaces (the Pallas TPU kernels):
 //   sla2_decode   repro/kernels/sla2_decode_paged.py::_decode_kernel, via
 //                 sla2_decode_fused (W = 1) and sla2_decode_verify (W > 1);
 //   dense_decode  repro/kernels/sla2_decode_paged.py::_dense_decode_kernel,
-//                 via dense_decode_fused (W = 1) and dense_decode_verify;
-//   paged_prefill repro/kernels/sla2_decode_paged.py::_prefill_kernel, via
-//                 paged_flash_prefill.
+//                 via dense_decode_fused (W = 1) and dense_decode_verify.
 //
 // The K/V cache is a pool of physical pages (P, Hkv, bk, Dh): f32 or bf16,
 // or int8 / e4m3 codes with one f32 scale per token row (kv_quant), which
@@ -44,113 +42,61 @@
 // 32 blocks fill a quarter of the 132 SMs.  Splitting K_sel across blocks
 // (flash-decoding, with lnum / lden combined as well) is left for later.
 //
-// dense_decode: one block per (slot x KV head, window row), the GQA group's
-// n_rep rows together.  No router: the block walks, in ascending order, only
-// the logical pages its row can see, computed from the row length t (its own
-// token included), the sliding window and the prefix: the prefix pages
-// [0, ceil(prefix_len / bk)) when a window is set, then
+// dense_decode: no router; every (slot, KV head) reads, in ascending order,
+// only the logical pages its rows can see, computed from the row length t
+// (its own token included), the sliding window and the prefix: the prefix
+// pages [0, ceil(prefix_len / bk)) when a window is set, then
 // [floor(max(t - window, 0) / bk), ceil(t / bk)).  A wholly masked page
 // leaves the online softmax unchanged, so skipping the others is exact; no
-// entry of the page table past the row's length is read.  Per page, as in
-// sla2_decode: K / V tiles in shared memory (dequantised under kv_quant),
-// S = q k^T (the QAT tiles under quant_bits), the position mask cols < t and,
-// with a window, cols >= t - window | cols < prefix_len, the same online
-// softmax and P sum order, acc = acc * corr + P V.  The next page's raw K / V
-// are loaded into registers while the current page is computed.  A row that
-// sees nothing writes acc / max(l, 1e-20) = 0.
-// Bound: every visible K / V byte read once (the 8192-token prompt of the
-// qwen3-14b run: 129 pages x 2 x 16 KiB per KV head in bf16); a few MFLOP.
-// Bytes-bound; the first design runs on CUDA cores with one block per row
-// and no split of the pages across blocks (flash-decoding is left for later).
+// entry of the page table past the rows' lengths is read.  Bound: every
+// visible K / V byte read once (the lm-serve contexts of qwen3-14b: 197
+// pages x 8 KV heads x 2 x 16 KiB = 51.6 MB in bf16, 15.5 us at the H100
+// SXM's 3.35 TB/s);
+// a few MFLOP, so CUDA cores suffice and what matters is bytes in flight.
+// Two kernels, selected by quant_bits (a selection by input, not a fallback
+// on failure):
 //
-// paged_prefill: one block per (64-row tile of the n_rep * C stacked query
-// rows, KV head).  Stacked row r is query head h * n_rep + r / C at chunk
-// position offset + r % C.  The block loops in ascending order over the
-// pages the reference visits (p * bk < offset + C, less the pages wholly
-// below the window start unless inside the prefix) and skips those its own
-// rows cannot see at all; a wholly masked page leaves the online-softmax
-// state unchanged, so skipping it is exact.  The mask is rows >= cols, then
-// cols >= rows - window + 1, then | cols < prefix_len, as in the reference.
-// Each thread keeps a 4 x (Dh / 16) tile of the output in registers; Q.K^T
-// and P.V both run as f32 FMA on CUDA cores (P stays f32, as the reference
-// keeps it).  Bound: 4 H C keys Dh operations; bf16 tensor cores would be
-// the fast path for Q.K^T, left for later.
+// dense_split_kernel + dense_combine_kernel (quant_bits none, the serving
+// path): flash-decoding.  Grid (slot x KV head, split, window-row group);
+// one block takes all window rows (up to 64 rows of window rows x n_rep) of
+// its (slot, KV head), each row masked by its own t, so a verify window
+// reads each page once.  The group's visible pages (the union over its
+// rows) are cut into splits of pages_per_split = max(2, ceil(n_vis /
+// n_split)) consecutive pages; n_split is chosen by the wrapper from the
+// grid's size (about 8 blocks per SM) and the table's width, so the longest
+// row takes about 4 pages a block at the lm-serve contexts.  A split past
+// the last visible page exits at once.  Per split:
+//   - its page-table entries are read first, into shared memory;
+//   - K / V pages flow through a 2-page cp.async ring of 16-byte loads in
+//     their storage type (bf16, f32 or codes with their row scales), no
+//     f32 copy; Q K^T reads a row in quads from a rotated start per key,
+//     so the 32 lanes of a warp hit distinct banks;
+//   - the reference's online softmax (m_safe, corr, the p[kk] + p[kk+32]
+//     then butterfly P sum) on the split's pages, acc = acc * corr + P V
+//     with acc in shared memory; under kv_quant the row scales multiply
+//     S's and P's columns, (Q Kc^T) ks and (P vs) Vc;
+//   - the card is latency-bound here: each thread's dot products run in
+//     four independent partial sums, and 3 blocks share an SM (72 KB of
+//     shared memory at W 1 on a bf16 pool, at most 85 registers);
+//   - the partials (acc, m, l) per (row, head) go to f32 scratch.
+// The combine (one block per row: slot x KV head, window row, head) reads
+// the splits that hold pages: M = max_s m_s and w_s = exp(m_s' - M') with
+// the m > HALF_NEG guards of the kernel's corr (one warp; the l_s w_s sum in
+// lane partials, then a butterfly); o = sum_s acc_s w_s (ascending s, the
+// loads unrolled: it is bound by their latency) / max(sum_s l_s w_s,
+// 1e-20); a row that sees nothing writes 0.
+//
+// dense_decode_kernel (quant_bits int8 / fp8, QAT tiles): P's codes depend
+// on the running max of all earlier pages, so a split would change them.
+// One block per (slot x KV head, window row) walks the row's pages
+// serially, as the reference does: K / V tiles dequantised to f32 in shared
+// memory, the QAT tiles of sla2_decode, the next page's raw K / V loaded
+// into registers while the current page is computed.
 // No --use_fast_math: it would change expf and the divisions.
 
-#include <cuda_bf16.h>
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_common.cuh"
 
 namespace {
-
-constexpr int DMAX = 128;               // largest head dim
-constexpr int BKMAX = 64;               // largest block_k (page size)
-constexpr int RMAX = 16;                // largest n_rep
-constexpr int NT = 256;                 // threads per block
-constexpr int NWARP = NT / 32;
-constexpr float NEG_INF = -1e30f;
-constexpr float HALF_NEG = -5e29f;      // NEG_INF * 0.5
-
-enum { Q_NONE = 0, Q_INT8 = 1, Q_FP8 = 2 };
-enum { P_F32 = 0, P_BF16 = 1, P_I8 = 2, P_E4M3 = 3 };
-
-__device__ __forceinline__ float ldf(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float ldf(const int8_t* p, size_t i) {
-  return (float)p[i];
-}
-__device__ __forceinline__ float ldf(const __nv_fp8_e4m3* p, size_t i) {
-  return static_cast<float>(p[i]);
-}
-__device__ __forceinline__ float tof(float x) { return x; }
-__device__ __forceinline__ float tof(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float tof(int8_t x) { return (float)x; }
-__device__ __forceinline__ float tof(__nv_fp8_e4m3 x) {
-  return static_cast<float>(x);
-}
-
-// Max over the block; every thread must call it.
-__device__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < NWARP; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Butterfly sum over the warp: every lane ends with the same value, the
-// sum (v_i + v_{i+16}), then halves of 8, 4, 2, 1 (commutativity makes the
-// lanes agree bit for bit).
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float tile_scale(int quant, float amax) {
-  return quant == Q_INT8 ? fmaxf(amax / 127.0f, 1e-8f)
-                         : fmaxf(amax / 448.0f, 1e-12f);
-}
-
-__device__ __forceinline__ float code(int quant, float x, float s) {
-  if (quant == Q_INT8) return fminf(fmaxf(rintf(x / s), -127.0f), 127.0f);
-  return static_cast<float>(__nv_fp8_e4m3(x / s));   // RNE, saturating
-}
 
 // Softmax over Dh of row `src` (stride 1) into `dst`, one warp per row:
 // exp(x - max) / sum, as phi computes it.
@@ -447,8 +393,27 @@ sla2_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   }
 }
 
+// The pages rows of lengths t_lo .. t_hi see, ascending: [0, n_pref), then
+// [lo2, lo2 + n_vis - n_pref).
+struct VisPages {
+  int n_pref, lo2, n_vis;
+};
+
+__device__ __forceinline__ VisPages vis_pages(int t_lo, int t_hi, int bk,
+                                              int max_p, int window,
+                                              int prefix_len) {
+  const int hi = min(max_p, (t_hi + bk - 1) / bk);
+  int n_pref = 0, lo = 0;
+  if (window >= 0) {
+    lo = max(t_lo - window, 0) / bk;
+    n_pref = min(hi, (prefix_len + bk - 1) / bk);
+  }
+  const int lo2 = max(lo, n_pref);
+  return {n_pref, lo2, n_pref + max(0, hi - lo2)};
+}
+
 // ===========================================================================
-// dense_decode
+// dense_decode with QAT tiles: one block per row, pages in order
 // ===========================================================================
 
 struct DenseLayout {
@@ -554,14 +519,8 @@ dense_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
 
   // ---- the pages this row can see, ascending: the prefix pages (with a
   // window), then [floor(max(t - window, 0) / bk), ceil(t / bk)) ----
-  const int hi = min(max_p, (t + bk - 1) / bk);
-  int n_pref = 0, lo = 0;
-  if (window >= 0) {
-    lo = max(t - window, 0) / bk;
-    n_pref = min(hi, (prefix_len + bk - 1) / bk);
-  }
-  const int lo2 = max(lo, n_pref);
-  const int n_vis = n_pref + max(0, hi - lo2);
+  const VisPages V = vis_pages(t, t, bk, max_p, window, prefix_len);
+  const int n_pref = V.n_pref, lo2 = V.lo2, n_vis = V.n_vis;
   const int* trow = table + (size_t)b * max_p;
   auto page_of = [&](int i) { return i < n_pref ? i : lo2 + (i - n_pref); };
 
@@ -704,188 +663,292 @@ dense_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
 }
 
 // ===========================================================================
-// paged_prefill
+// dense_decode, split across blocks (quant_bits none)
 // ===========================================================================
 
-constexpr int TM = 64;                  // stacked query rows per block
+constexpr int SPLIT_ROWS = 64;          // window rows x n_rep of a block
+constexpr int SPLIT_STAGES = 2;         // pages in the ring
+constexpr int PPS_MIN = 2;              // pages per split, at least
+constexpr int PPS_MAX = 64;             // and at most
 
-struct PrefillLayout {
-  size_t q, k, v, p, total;
+struct SplitLayout {
+  int q, sc, acc, row, tr, pg, ring, stage, total;   // bytes
 };
 
-__host__ __device__ inline PrefillLayout prefill_layout(int bk, int dh) {
-  PrefillLayout L;
-  size_t off = 0;                       // in floats
-  L.q = off; off += (size_t)TM * (dh + 1);
-  L.k = off; off += (size_t)bk * (dh + 1);
-  L.v = off; off += (size_t)bk * dh;
-  L.p = off; off += (size_t)TM * (bk + 1);
-  L.total = off * sizeof(float);
+__host__ __device__ inline SplitLayout split_layout(int rows, int bk, int dh,
+                                                    int es) {
+  SplitLayout L;
+  int off = 0;                                // each section 16-byte aligned
+  L.q = off;   off += rows * dh * 4;          // q, f32 [rows][dh]
+  L.acc = off; off += rows * dh * 4;          // acc, f32 [rows][dh]
+  L.row = off; off += 3 * SPLIT_ROWS * 4;     // m, l, corr per row
+  L.tr = off;  off += SPLIT_ROWS * 4;         // t per row
+  L.pg = off;  off += 2 * PPS_MAX * 4;        // logical, physical page
+  L.sc = off;  off += rows * (bk + 1) * 4;    // S, then P
+  off = (off + 127) & ~127;
+  L.ring = off;
+  L.stage = 2 * bk * dh * es + 2 * bk * 4;    // K, V, their row scales
+  off += SPLIT_STAGES * L.stage;
+  L.total = off;
   return L;
 }
 
+// The lengths of window rows w0 .. w0 + nw - 1 of slot b: min and max.
+__device__ __forceinline__ void row_span(const int* tnew, int b, int W,
+                                         int w0, int nw, int& t_lo,
+                                         int& t_hi) {
+  t_lo = 1 << 30;
+  t_hi = 0;
+  for (int w = 0; w < nw; ++w) {
+    const int t = tnew[(size_t)b * W + w0 + w];
+    t_lo = min(t_lo, t);
+    t_hi = max(t_hi, t);
+  }
+}
+
+__device__ __forceinline__ int split_pages(int n_vis, int n_split) {
+  return max(PPS_MIN, (n_vis + n_split - 1) / n_split);
+}
+
 template <typename QT, typename PT>
-__global__ void __launch_bounds__(NT)
-paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
-                     const PT* __restrict__ vp,
-                     const float* __restrict__ kscale,
-                     const float* __restrict__ vscale,
-                     const int* __restrict__ page_row, float* __restrict__ o,
-                     int c, int n_rep, int dh, int bk, int max_p, int offset,
-                     int window, int prefix_len, int n_pages, int hkv,
-                     float sm_scale) {
-  extern __shared__ __align__(16) float sm[];
-  const PrefillLayout L = prefill_layout(bk, dh);
-  float* qs = sm + L.q;                 // [TM][dh + 1]
-  float* kt = sm + L.k;                 // [bk][dh + 1]
-  float* vt = sm + L.v;                 // [bk][dh]
-  float* pt = sm + L.p;                 // [TM][bk + 1]
-  const int tile = blockIdx.x, head = blockIdx.y;
+__global__ void __launch_bounds__(NT, 3)
+dense_split_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
+                   const PT* __restrict__ vp,
+                   const float* __restrict__ kscale,
+                   const float* __restrict__ vscale,
+                   const int* __restrict__ table,
+                   const int* __restrict__ tnew, float* __restrict__ part_acc,
+                   float* __restrict__ part_ml, int W, int wg, int hkv,
+                   int n_rep, int dh, int bk, int max_p, int window,
+                   int prefix_len, int n_pages, int n_split, float sm_scale) {
+  constexpr bool SCALED = sizeof(PT) == 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g = blockIdx.x, sp = blockIdx.y, w0 = blockIdx.z * wg;
+  const int b = g / hkv, head = g - b * hkv;
+  const int nw = min(wg, W - w0), R = nw * n_rep;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  int t_lo, t_hi;
+  row_span(tnew, b, W, w0, nw, t_lo, t_hi);
+  const VisPages V = vis_pages(t_lo, t_hi, bk, max_p, window, prefix_len);
+  const int pps = split_pages(V.n_vis, n_split);
+  const int i0 = sp * pps, n = min(V.n_vis - i0, pps);
+  if (n <= 0) return;                   // past the last page: no partial
+
+  const SplitLayout L = split_layout(R, bk, dh, sizeof(PT));
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* accs = reinterpret_cast<float*>(smem + L.acc);
+  float* m_r = reinterpret_cast<float*>(smem + L.row);
+  float* l_r = m_r + SPLIT_ROWS;
+  float* c_r = l_r + SPLIT_ROWS;
+  int* t_r = reinterpret_cast<int*>(smem + L.tr);
+  int* pj = reinterpret_cast<int*>(smem + L.pg);   // logical page
+  int* pph = pj + PPS_MAX;                          // physical, -1 unmapped
+  const int sst = bk + 1, half = dh / 2;
+  const int tile_bytes = bk * dh * (int)sizeof(PT);
+
+  // ---- page-table entries, q, row state ----
+  for (int i = tid; i < n; i += NT) {
+    const int ii = i0 + i;
+    const int j = ii < V.n_pref ? ii : V.lo2 + (ii - V.n_pref);
+    const int ph = table[(size_t)b * max_p + j];
+    pj[i] = j;
+    pph[i] = ph < 0 || ph >= n_pages ? -1 : ph;
+  }
+  __syncthreads();
+
+  // ---- the ring: page i of the split lands in stage i % SPLIT_STAGES ----
+  const int chunks = tile_bytes / 16;
+  auto issue = [&](int i) {
+    if (i < n && pph[i] >= 0) {
+      unsigned char* st = smem + L.ring + (i % SPLIT_STAGES) * L.stage;
+      const size_t pg = (size_t)pph[i] * hkv + head;
+      const unsigned char* ksrc =
+          reinterpret_cast<const unsigned char*>(kp + pg * bk * dh);
+      const unsigned char* vsrc =
+          reinterpret_cast<const unsigned char*>(vp + pg * bk * dh);
+      for (int e = tid; e < chunks; e += NT) {
+        cp_async16(st + e * 16, ksrc + (size_t)e * 16);
+        cp_async16(st + tile_bytes + e * 16, vsrc + (size_t)e * 16);
+      }
+      if (SCALED)
+        for (int e = tid; e < bk / 4; e += NT) {
+          cp_async16(st + 2 * tile_bytes + e * 16, kscale + pg * bk + 4 * e);
+          cp_async16(st + 2 * tile_bytes + bk * 4 + e * 16,
+                     vscale + pg * bk + 4 * e);
+        }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < SPLIT_STAGES - 1; ++i) issue(i);
+
+  // ---- q and the row state, while the first page is in flight ----
+  const size_t row0 = ((size_t)g * W + w0) * n_rep;   // (g, w, h) order
+  const QT* qb = q + row0 * dh;
+  for (int e = tid; e < R * dh; e += NT) {
+    qs[e] = ldf(qb, e);
+    accs[e] = 0.0f;
+  }
+  if (tid < R) {
+    m_r[tid] = NEG_INF;
+    l_r[tid] = 0.0f;
+    c_r[tid] = 1.0f;
+    t_r[tid] = tnew[(size_t)b * W + w0 + tid / n_rep];
+  }
+
+  const int nq4 = dh / 4;               // quads of a row (a power of two)
+  for (int i = 0; i < n; ++i) {
+    issue(i + SPLIT_STAGES - 1);
+    cp_async_wait<SPLIT_STAGES - 1>();
+    __syncthreads();                    // page i landed for every thread
+    if (pph[i] >= 0) {                  // uniform: skip an unmapped entry
+      const int j = pj[i];
+      const unsigned char* st = smem + L.ring + (i % SPLIT_STAGES) * L.stage;
+      const PT* kt = reinterpret_cast<const PT*>(st);
+      const PT* vt = reinterpret_cast<const PT*>(st + tile_bytes);
+      const float* ksc = reinterpret_cast<const float*>(st + 2 * tile_bytes);
+      const float* vsc = ksc + bk;
+
+      // ---- S for the rows x bk tile, each row masked by its own t.  A
+      // key's row is read in quads from a rotated start (the lanes of a warp
+      // hit distinct banks), in four partial sums ----
+      for (int e = tid; e < R * bk; e += NT) {
+        const int r = e / bk, kk = e - r * bk;
+        const float* qr = qs + r * dh;
+        const PT* kr = kt + kk * dh;
+        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+        for (int u = 0; u < nq4; u += 2) {
+          const int d0 = 4 * ((u + kk) & (nq4 - 1));
+          const int d1 = 4 * ((u + 1 + kk) & (nq4 - 1));
+          const float4 a0 = *reinterpret_cast<const float4*>(qr + d0);
+          const float4 a1 = *reinterpret_cast<const float4*>(qr + d1);
+          const float4 k0 = ld4(kr + d0), k1 = ld4(kr + d1);
+          s0 = fmaf(a0.y, k0.y, fmaf(a0.x, k0.x, s0));
+          s1 = fmaf(a0.w, k0.w, fmaf(a0.z, k0.z, s1));
+          s2 = fmaf(a1.y, k1.y, fmaf(a1.x, k1.x, s2));
+          s3 = fmaf(a1.w, k1.w, fmaf(a1.z, k1.z, s3));
+        }
+        float x = __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
+        if (SCALED) x = __fmul_rn(x, ksc[kk]);
+        x = __fmul_rn(x, sm_scale);
+        const int col = j * bk + kk, t = t_r[r];
+        bool vis = col < t;
+        if (window >= 0) vis = vis && (col >= t - window || col < prefix_len);
+        sc[r * sst + kk] = vis ? x : NEG_INF;
+      }
+      __syncthreads();
+
+      // ---- online softmax, one warp per row ----
+      for (int r = warp; r < R; r += NWARP) {
+        float* srow = sc + r * sst;
+        const float s0 = lane < bk ? srow[lane] : NEG_INF;
+        const float s1 = lane + 32 < bk ? srow[lane + 32] : NEG_INF;
+        const float m_prev = m_r[r];
+        const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+        const float m_safe = m_new > HALF_NEG ? m_new : 0.0f;
+        const float p0 = s0 > HALF_NEG ? expf(s0 - m_safe) : 0.0f;
+        const float p1 = s1 > HALF_NEG ? expf(s1 - m_safe) : 0.0f;
+        const float psum = warp_sum(__fadd_rn(p0, p1));
+        const float corr = expf((m_prev > HALF_NEG ? m_prev : m_safe) - m_safe);
+        if (lane < bk) srow[lane] = SCALED ? __fmul_rn(p0, vsc[lane]) : p0;
+        if (lane + 32 < bk)
+          srow[lane + 32] = SCALED ? __fmul_rn(p1, vsc[lane + 32]) : p1;
+        if (lane == 0) {
+          l_r[r] = __fadd_rn(__fmul_rn(l_r[r], corr), psum);
+          m_r[r] = m_new;
+          c_r[r] = corr;
+        }
+      }
+      __syncthreads();
+
+      // ---- acc = acc * corr + P V, columns 2 c and 2 c + 1 of a row, in
+      // four partial sums ----
+      for (int e = tid; e < R * half; e += NT) {
+        const int r = e / half, c2 = 2 * (e - r * half);
+        const float* prow = sc + r * sst;
+        const PT* vc = vt + c2;
+        float x0 = 0.0f, x1 = 0.0f, y0 = 0.0f, y1 = 0.0f;
+        for (int k = 0; k < bk; k += 2) {
+          const float2 v0 = ld2(vc + k * dh), v1 = ld2(vc + (k + 1) * dh);
+          const float p0 = prow[k], p1 = prow[k + 1];
+          x0 = fmaf(p0, v0.x, x0);
+          x1 = fmaf(p0, v0.y, x1);
+          y0 = fmaf(p1, v1.x, y0);
+          y1 = fmaf(p1, v1.y, y1);
+        }
+        float2* a = reinterpret_cast<float2*>(accs + r * dh + c2);
+        const float cr = c_r[r];
+        float2 av = *a;
+        av.x = __fadd_rn(__fmul_rn(av.x, cr), __fadd_rn(x0, y0));
+        av.y = __fadd_rn(__fmul_rn(av.y, cr), __fadd_rn(x1, y1));
+        *a = av;
+      }
+    }
+    __syncthreads();                    // stage i may be refilled
+  }
+
+  // ---- the partials of this split ----
+  for (int e = tid; e < R * dh; e += NT) {
+    const int r = e / dh;
+    part_acc[((row0 + r) * n_split + sp) * dh + (e - r * dh)] = accs[e];
+  }
+  if (tid < R) {
+    part_ml[((row0 + tid) * n_split + sp) * 2] = m_r[tid];
+    part_ml[((row0 + tid) * n_split + sp) * 2 + 1] = l_r[tid];
+  }
+}
+
+// One block of Dh threads per (slot x KV head, row group, row).
+__global__ void __launch_bounds__(DMAX)
+dense_combine_kernel(const int* __restrict__ tnew,
+                     const float* __restrict__ part_acc,
+                     const float* __restrict__ part_ml, float* __restrict__ o,
+                     int W, int wg, int hkv, int n_rep, int dh, int bk,
+                     int max_p, int window, int prefix_len, int n_split) {
+  extern __shared__ __align__(16) float wts[];    // [n_split]
+  __shared__ float lsum;
+  const int g = blockIdx.x, w0 = blockIdx.y * wg, r = blockIdx.z;
+  const int b = g / hkv;
+  const int nw = min(wg, W - w0);
+  if (r >= nw * n_rep) return;
   const int tid = threadIdx.x;
-  const int rg = tid >> 4, cg = tid & 15;   // rows 4 rg + i; keys / cols cg + 16 j
-  const int nrows = n_rep * c;
-  const int r0 = tile * TM;
-  const int qst = dh + 1, pst = bk + 1;
-  const int nk = bk / 16, nc = dh / 16;
+  int t_lo, t_hi;
+  row_span(tnew, b, W, w0, nw, t_lo, t_hi);
+  const VisPages V = vis_pages(t_lo, t_hi, bk, max_p, window, prefix_len);
+  const int pps = split_pages(V.n_vis, n_split);
+  const int n_used = (V.n_vis + pps - 1) / pps;    // splits that hold pages
+  const size_t row = ((size_t)g * W + w0) * n_rep + r;
 
-  // ---- Q tile (stacked rows r0 .. r0 + 63 of this KV head) ----
-  const QT* qh = q + (size_t)head * nrows * dh;
-  for (int e = tid; e < TM * dh; e += NT) {
-    const int r = e / dh, col = e - r * dh;
-    qs[r * qst + col] = r0 + r < nrows ? ldf(qh, (size_t)(r0 + r) * dh + col) : 0.0f;
-  }
-  int pos[4];
-  int pos_min = 1 << 30, pos_max = -1;
-  for (int r = 0; r < TM && r0 + r < nrows; ++r) {
-    const int ps = offset + (r0 + r) % c;
-    pos_min = min(pos_min, ps);
-    pos_max = max(pos_max, ps);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) pos[i] = offset + (r0 + 4 * rg + i) % c;
-
-  float acc[4][DMAX / 16], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int jc = 0; jc < DMAX / 16; ++jc) acc[i][jc] = 0.0f;
-  }
-
-  for (int p = 0; p < max_p && p * bk < offset + c; ++p) {
-    const bool in_prefix = p * bk < prefix_len;
-    if (window >= 0 && (p + 1) * bk <= offset - window + 1 && !in_prefix)
-      continue;                         // the reference's page flags
-    // pages no row of this tile can see (exact to skip)
-    if (p * bk > pos_max && !in_prefix) continue;
-    if (window >= 0 && (p + 1) * bk <= pos_min - window + 1 && !in_prefix)
-      continue;
-    const int ph = page_row[p];
-    if (ph < 0 || ph >= n_pages) continue;
-    __syncthreads();                    // previous tiles no longer read
-    const size_t pbase = ((size_t)ph * hkv + head) * (size_t)bk * dh;
-    const float* ksr = kscale ? kscale + ((size_t)ph * hkv + head) * bk : nullptr;
-    const float* vsr = vscale ? vscale + ((size_t)ph * hkv + head) * bk : nullptr;
-    for (int e = tid; e < bk * dh; e += NT) {
-      const int row = e / dh, col = e - row * dh;
-      float kx = ldf(kp, pbase + e), vx = ldf(vp, pbase + e);
-      if (ksr) kx = __fmul_rn(kx, ksr[row]);
-      if (vsr) vx = __fmul_rn(vx, vsr[row]);
-      kt[row * qst + col] = kx;
-      vt[e] = vx;
+  // ---- warp 0: w_s = exp(m_s' - M') with the corr guards, and
+  // max(sum_s l_s w_s, 1e-20) (lane partials, then a butterfly) ----
+  if (tid < 32) {
+    const float* ml = part_ml + row * n_split * 2;
+    float m = NEG_INF;
+    for (int s = tid; s < n_used; s += 32) m = fmaxf(m, ml[2 * s]);
+    m = warp_max(m);
+    const float m_safe = m > HALF_NEG ? m : 0.0f;
+    float l = 0.0f;
+    for (int s = tid; s < n_used; s += 32) {
+      const float ms = ml[2 * s];
+      const float w = expf((ms > HALF_NEG ? ms : m_safe) - m_safe);
+      wts[s] = w;
+      l = __fadd_rn(l, __fmul_rn(ml[2 * s + 1], w));
     }
-    __syncthreads();
-
-    // ---- S for rows 4 rg + i, keys cg + 16 jk ----
-    float s[4][BKMAX / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jk = 0; jk < BKMAX / 16; ++jk) s[i][jk] = 0.0f;
-    for (int d = 0; d < dh; ++d) {
-      float a[4], bb[BKMAX / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(4 * rg + i) * qst + d];
-#pragma unroll
-      for (int jk = 0; jk < BKMAX / 16; ++jk)
-        bb[jk] = jk < nk ? kt[(cg + 16 * jk) * qst + d] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jk = 0; jk < BKMAX / 16; ++jk) s[i][jk] = fmaf(a[i], bb[jk], s[i][jk]);
-    }
-
-    // ---- mask, online softmax (a row lives on 16 lanes), P to smem ----
-    float corr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int jk = 0; jk < BKMAX / 16; ++jk) {
-        if (jk >= nk) continue;
-        const int col = p * bk + cg + 16 * jk;
-        bool vis = pos[i] >= col;
-        if (window >= 0) vis = vis && col >= pos[i] - window + 1;
-        if (prefix_len) vis = vis || col < prefix_len;
-        s[i][jk] = vis ? __fmul_rn(s[i][jk], sm_scale) : NEG_INF;
-        mx = fmaxf(mx, s[i][jk]);
-      }
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = m_new > HALF_NEG ? m_new : 0.0f;
-      float ps = 0.0f;
-#pragma unroll
-      for (int jk = 0; jk < BKMAX / 16; ++jk) {
-        if (jk >= nk) continue;
-        const float pr = s[i][jk] > HALF_NEG ? expf(s[i][jk] - m_safe) : 0.0f;
-        pt[(4 * rg + i) * pst + cg + 16 * jk] = pr;
-        ps = __fadd_rn(ps, pr);
-      }
-      for (int off = 8; off > 0; off >>= 1)
-        ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, off));
-      corr[i] = expf((m[i] > HALF_NEG ? m[i] : m_safe) - m_safe);
-      l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), ps);
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-    // ---- acc = acc * corr + P V for rows 4 rg + i, cols cg + 16 jc ----
-    float x[4][DMAX / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jc = 0; jc < DMAX / 16; ++jc) x[i][jc] = 0.0f;
-    for (int kk = 0; kk < bk; ++kk) {
-      float a[4], bb[DMAX / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = pt[(4 * rg + i) * pst + kk];
-#pragma unroll
-      for (int jc = 0; jc < DMAX / 16; ++jc)
-        bb[jc] = jc < nc ? vt[kk * dh + cg + 16 * jc] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jc = 0; jc < DMAX / 16; ++jc) x[i][jc] = fmaf(a[i], bb[jc], x[i][jc]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jc = 0; jc < DMAX / 16; ++jc)
-        acc[i][jc] = __fadd_rn(__fmul_rn(acc[i][jc], corr[i]), x[i][jc]);
+    l = warp_sum(l);
+    if (tid == 0) lsum = fmaxf(l, 1e-20f);
   }
+  __syncthreads();
 
-  // ---- o = acc / l_safe for the valid stacked rows ----
-  float* oh = o + (size_t)head * nrows * dh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 4 * rg + i;
-    if (r >= nrows) continue;
-    const float ls = fmaxf(l[i], 1e-20f);
-#pragma unroll
-    for (int jc = 0; jc < DMAX / 16; ++jc)
-      if (jc < nc) oh[(size_t)r * dh + cg + 16 * jc] = acc[i][jc] / ls;
+  // ---- o = sum_s acc_s w_s (ascending s) / max(sum_s l_s w_s, 1e-20) ----
+  if (tid < dh) {
+    const float* pa = part_acc + row * n_split * dh + tid;
+    float a = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < n_used; ++s)
+      a = __fadd_rn(a, __fmul_rn(pa[(size_t)s * dh], wts[s]));
+    o[row * dh + tid] = a / lsum;
   }
 }
 
@@ -924,14 +987,15 @@ int run_decode(const DecodeArgs& a) {
 
 struct DenseArgs {
   const void *q, *kp, *vp, *ks, *vs, *table, *tnew;
-  void* o;
-  int b, W, hkv, n_rep, dh, bk, max_p, window, prefix_len, quant, n_pages;
+  void *o, *part_acc, *part_ml;
+  int b, W, hkv, n_rep, dh, bk, max_p, window, prefix_len, quant, n_pages,
+      n_split, wg;
   float sm_scale;
   cudaStream_t stream;
 };
 
 template <typename QT, typename PT>
-int run_dense(const DenseArgs& a) {
+int run_dense_qat(const DenseArgs& a) {
   const size_t smem = dense_layout(a.n_rep, a.bk, a.dh).total;
   auto kern = dense_decode_kernel<QT, PT>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -948,30 +1012,40 @@ int run_dense(const DenseArgs& a) {
   return (int)cudaGetLastError();
 }
 
-struct PrefillArgs {
-  const void *q, *kp, *vp, *ks, *vs, *page_row;
-  void* o;
-  int h, c, n_rep, dh, bk, max_p, offset, window, prefix_len, n_pages, hkv;
-  float sm_scale;
-  cudaStream_t stream;
-};
-
 template <typename QT, typename PT>
-int run_prefill(const PrefillArgs& a) {
-  const size_t smem = prefill_layout(a.bk, a.dh).total;
-  auto kern = paged_prefill_kernel<QT, PT>;
+int run_dense_split(const DenseArgs& a) {
+  const int rows = (a.wg < a.W ? a.wg : a.W) * a.n_rep;
+  const int smem = split_layout(rows, a.bk, a.dh, sizeof(PT)).total;
+  auto kern = dense_split_kernel<QT, PT>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int nrows = a.n_rep * a.c;
-  const dim3 grid((nrows + TM - 1) / TM, a.hkv);
-  kern<<<grid, NT, smem, a.stream>>>(
+  const int nz = (a.W + a.wg - 1) / a.wg;
+  kern<<<dim3(a.b * a.hkv, a.n_split, nz), NT, smem, a.stream>>>(
       static_cast<const QT*>(a.q), static_cast<const PT*>(a.kp),
       static_cast<const PT*>(a.vp), static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), static_cast<const int*>(a.page_row),
-      static_cast<float*>(a.o), a.c, a.n_rep, a.dh, a.bk, a.max_p, a.offset,
-      a.window, a.prefix_len, a.n_pages, a.hkv, a.sm_scale);
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.table),
+      static_cast<const int*>(a.tnew), static_cast<float*>(a.part_acc),
+      static_cast<float*>(a.part_ml), a.W, a.wg, a.hkv, a.n_rep, a.dh, a.bk,
+      a.max_p, a.window, a.prefix_len, a.n_pages, a.n_split, a.sm_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int wsmem = a.n_split * 4;                     // the weights
+  e = cudaFuncSetAttribute(dense_combine_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, wsmem);
+  if (e != cudaSuccess) return (int)e;
+  dense_combine_kernel<<<dim3(a.b * a.hkv, nz, rows), DMAX, wsmem, a.stream>>>(
+      static_cast<const int*>(a.tnew), static_cast<const float*>(a.part_acc),
+      static_cast<const float*>(a.part_ml), static_cast<float*>(a.o), a.W,
+      a.wg, a.hkv, a.n_rep, a.dh, a.bk, a.max_p, a.window, a.prefix_len,
+      a.n_split);
   return (int)cudaGetLastError();
+}
+
+template <typename QT, typename PT>
+int run_dense(const DenseArgs& a) {
+  return a.quant == Q_NONE ? run_dense_split<QT, PT>(a)
+                           : run_dense_qat<QT, PT>(a);
 }
 
 template <typename QT>
@@ -996,22 +1070,6 @@ int dense_pool(int pool, const DenseArgs& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename QT>
-int prefill_pool(int pool, const PrefillArgs& a) {
-  switch (pool) {
-    case P_F32: return run_prefill<QT, float>(a);
-    case P_BF16: return run_prefill<QT, __nv_bfloat16>(a);
-    case P_I8: return run_prefill<QT, int8_t>(a);
-    case P_E4M3: return run_prefill<QT, __nv_fp8_e4m3>(a);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-bool shapes_ok(int dh, int bk, int n_rep) {
-  return (dh == 64 || dh == 128) && bk % 16 == 0 && bk >= 16 &&
-         bk <= BKMAX && n_rep >= 1 && n_rep <= RMAX;
-}
-
 }  // namespace
 
 // C entries, bound with ctypes.  Each returns cudaGetLastError() after the
@@ -1034,35 +1092,36 @@ extern "C" int sla2_decode(const void* q, const void* kp, const void* vp,
   return q_bf16 ? decode_pool<__nv_bfloat16>(pool, a) : decode_pool<float>(pool, a);
 }
 
+// quant_bits none runs the split kernel and the combine: part_acc (rows x
+// n_split x Dh) and part_ml (rows x n_split x 2) f32 scratch, rows = B x
+// Hkv x W x n_rep; wg window rows per block (wg x n_rep <= 64) and n_split
+// splits (n_split x 64 >= max_p).  QAT tiles run dense_decode_kernel.
 extern "C" int dense_decode(const void* q, const void* kp, const void* vp,
                             const void* ks, const void* vs, const void* table,
-                            const void* tnew, void* o, int b, int W, int hkv,
-                            int n_rep, int dh, int bk, int max_p, int window,
+                            const void* tnew, void* o, void* part_acc,
+                            void* part_ml, int b, int W, int hkv, int n_rep,
+                            int dh, int bk, int max_p, int window,
                             int prefix_len, int quant, int q_bf16, int pool,
-                            int n_pages, float sm_scale, void* stream) {
+                            int n_pages, int n_split, int wg, float sm_scale,
+                            void* stream) {
   if (!shapes_ok(dh, bk, n_rep) || quant < Q_NONE || quant > Q_FP8 ||
       (pool >= P_I8 && (ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const DenseArgs a{q,     kp,    vp,         ks,    vs,      table,
-                    tnew,  o,     b,          W,     hkv,     n_rep,
-                    dh,    bk,    max_p,      window, prefix_len, quant,
-                    n_pages, sm_scale, static_cast<cudaStream_t>(stream)};
+  if (quant == Q_NONE &&
+      (part_acc == nullptr || part_ml == nullptr || wg < 1 ||
+       wg * n_rep > SPLIT_ROWS || n_split < 1 ||
+       (long long)n_split * PPS_MAX < max_p))
+    return (int)cudaErrorInvalidValue;
+  const DenseArgs a{q,      kp,     vp,      ks,         vs,       table,
+                    tnew,   o,      part_acc, part_ml,   b,        W,
+                    hkv,    n_rep,  dh,      bk,         max_p,    window,
+                    prefix_len, quant, n_pages, n_split, wg,       sm_scale,
+                    static_cast<cudaStream_t>(stream)};
   return q_bf16 ? dense_pool<__nv_bfloat16>(pool, a) : dense_pool<float>(pool, a);
 }
 
-extern "C" int paged_prefill(const void* q, const void* kp, const void* vp,
-                             const void* ks, const void* vs,
-                             const void* page_row, void* o, int h, int c,
-                             int n_rep, int dh, int bk, int max_p, int offset,
-                             int window, int prefix_len, int q_bf16, int pool,
-                             int n_pages, int hkv, float sm_scale,
-                             void* stream) {
-  if (!shapes_ok(dh, bk, n_rep) || h != n_rep * hkv || offset % bk ||
-      (pool >= P_I8 && (ks == nullptr || vs == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const PrefillArgs a{q,     kp,     vp,         ks,      vs,  page_row,
-                      o,     h,      c,          n_rep,   dh,  bk,
-                      max_p, offset, window,     prefix_len, n_pages, hkv,
-                      sm_scale, static_cast<cudaStream_t>(stream)};
-  return q_bf16 ? prefill_pool<__nv_bfloat16>(pool, a) : prefill_pool<float>(pool, a);
+// Dynamic shared memory per block of dense_split_kernel for `rows` rows
+// (window rows x n_rep) and a pool of element size es.
+extern "C" int dense_split_smem(int rows, int bk, int dh, int es) {
+  return split_layout(rows, bk, dh, es).total;
 }

@@ -23,22 +23,28 @@ page a row can see, by its length, the sliding window and the prefix,
 streams through one online softmax, with the same optional QAT tiles and
 low-bit pools.  On a CUDA tensor it launches ``dense_decode`` from the
 same source (counted in ``dense_decode_verify.launches``); on a CPU
-tensor it runs ``dense_decode_verify_plain``.
+tensor it runs ``dense_decode_verify_plain``.  Without QAT tiles the
+kernel splits each (slot, KV head)'s pages across blocks and combines the
+partials (``dense_split_shape``, ``dense_split_pages``);
+``dense_decode_split_plain`` is the plain version of that arithmetic, for
+the tests.
 
 ``paged_flash_prefill`` is exact causal flash attention of one slot's
 prefill chunk over its paged history, the GQA group stacked into one
 query tile per KV head, with sliding-window and prefix-LM masks.  On a
-CUDA tensor it launches ``paged_prefill`` from the same source (counted
-in ``paged_flash_prefill.launches``); on a CPU tensor it runs
+CUDA tensor it launches ``paged_prefill`` from ``csrc/paged_prefill.cu``
+(counted in ``paged_flash_prefill.launches``); on a CPU tensor it runs
 ``paged_flash_prefill_plain``.
 
 There is no fallback from one to the other.  The kernels take ``block_k``
 a multiple of 16 up to 64, ``Dh`` 64 or 128, bf16 or f32 pools or int8 /
-e4m3 codes, and up to 16 query heads per KV head; anything else raises.
+e4m3 codes (16-byte aligned), and up to 16 query heads per KV head;
+anything else raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -283,6 +289,13 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def _check_aligned(name, *tensors):
+    """The kernels copy pages with 16-byte cp.async."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel needs 16-byte aligned pools")
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -469,6 +482,124 @@ def dense_decode_fused(q, k_pages, v_pages, page_table, t_new, **kw):
                                t_new[:, None].contiguous(), **kw)[:, :, 0]
 
 
+# The split kernel's limits (csrc/sla2_decode_paged.cu) and its grid size.
+SPLIT_ROWS, PPS_MIN, PPS_MAX = 64, 2, 64
+SPLIT_PER_SM = 8                # blocks per SM the grid aims at
+SPLIT_MAX = 128                 # splits the grid size asks for, at most
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dense_split_shape(b, hkv, wdw, n_rep, max_p, n_sm):
+    """(wg, n_split) of the split dense kernel on a card of ``n_sm`` SMs:
+    wg window rows per block (wg * n_rep <= 64), and n_split splits per
+    (slot x KV head, row group) for about SPLIT_PER_SM blocks per SM in all
+    (at most SPLIT_MAX, and max_p / 2) but at least max_p / 64 (a split
+    holds at most 64 pages)."""
+    wg = min(wdw, max(1, SPLIT_ROWS // n_rep))
+    nz = -(-wdw // wg)
+    want = min(-(-SPLIT_PER_SM * n_sm // (b * hkv * nz)),
+               -(-max_p // PPS_MIN), SPLIT_MAX)
+    return wg, max(1, -(-max_p // PPS_MAX), want)
+
+
+def _visible_union(ts, block_k, max_p, window, prefix_len):
+    """(n_pref, lo2, n_vis): the pages rows of lengths ``ts`` see, as the
+    split kernel lists them, ascending: [0, n_pref), then [lo2, lo2 + n_vis
+    - n_pref)."""
+    hi = min(max_p, -(-max(ts) // block_k))
+    n_pref = lo = 0
+    if window is not None:
+        lo = max(min(ts) - window, 0) // block_k
+        n_pref = min(hi, -(-prefix_len // block_k))
+    lo2 = max(lo, n_pref)
+    return n_pref, lo2, n_pref + max(0, hi - lo2)
+
+
+def dense_split_pages(t_new, block_k, max_p, n_split, window=None,
+                      prefix_len=0):
+    """pages_per_split the split kernel takes for each slot of ``t_new``
+    (B, W) (its W rows in one group): max(2, ceil(visible / n_split))."""
+    return [max(PPS_MIN, -(-_visible_union(ts, block_k, max_p, window,
+                                           prefix_len)[2] // n_split))
+            for ts in t_new.tolist()]
+
+
+def dense_decode_split_plain(q, k_pages, v_pages, page_table, t_new, *,
+                             block_k: int, pages_per_split, window=None,
+                             prefix_len: int = 0, kv_quant: str = "none",
+                             k_scale=None, v_scale=None):
+    """Plain PyTorch version of the split dense kernel (f32 tiles, for the
+    tests): each slot's visible pages (the union over its W rows) are cut
+    into splits of ``pages_per_split`` consecutive pages (an int, or one
+    per slot); each split runs the online softmax of
+    ``dense_decode_verify_plain`` from m = -1e30, l = 0, acc = 0, each row
+    masked by its own length; then the combine over the splits: M = max
+    m_s, w_s = exp(m_s' - M') with the corr guards (m > -5e29), o = sum
+    acc_s w_s / max(sum l_s w_s, 1e-20).  Returns o (B, Hkv, W,
+    n_rep, Dh) f32."""
+    b, hkv, wdw, n_rep, dh = q.shape
+    dev = q.device
+    sm_scale = 1.0 / (dh ** 0.5)
+    qf32 = q.to(torch.float32)
+    max_p, n_pool = page_table.shape[1], k_pages.shape[0]
+    pps = ([pages_per_split] * b if isinstance(pages_per_split, int)
+           else list(pages_per_split))
+    offs = torch.arange(block_k, device=dev)
+    out = torch.zeros(b, hkv, wdw, n_rep, dh, device=dev)
+    for s in range(b):
+        n_pref, lo2, n_vis = _visible_union(t_new[s].tolist(), block_k,
+                                            max_p, window, prefix_len)
+        pages = [i if i < n_pref else lo2 + i - n_pref for i in range(n_vis)]
+        t = t_new[s].to(torch.int64)[None, :, None, None]   # (1, W, 1, 1)
+        parts = []
+        for start in range(0, n_vis, pps[s]):
+            shape = (hkv, wdw, n_rep)
+            acc = torch.zeros(*shape, dh, device=dev)
+            m_i = torch.full(shape, NEG_INF, device=dev)
+            l_i = torch.zeros(shape, device=dev)
+            for p in pages[start:start + pps[s]]:
+                ph = int(page_table[s, p])
+                if not 0 <= ph < n_pool:
+                    continue                    # unmapped: the kernel skips
+                k = _dequant(k_pages[ph], None if k_scale is None
+                             else k_scale[ph])[:, None]     # (Hkv,1,bk,Dh)
+                v = _dequant(v_pages[ph], None if v_scale is None
+                             else v_scale[ph])[:, None]
+                sc = torch.matmul(qf32[s], k.transpose(-1, -2)) * sm_scale
+                cols = p * block_k + offs
+                vis = cols < t
+                if window is not None:
+                    vis = vis & ((cols >= t - window) | (cols < prefix_len))
+                sc = torch.where(vis, sc, NEG_INF)
+                m_new = torch.maximum(m_i, torch.amax(sc, dim=-1))
+                m_safe = torch.where(m_new > _HALF_NEG, m_new, 0.0)
+                pr = torch.exp(sc - m_safe[..., None])
+                pr = torch.where(sc > _HALF_NEG, pr, 0.0)
+                corr = torch.exp(torch.where(m_i > _HALF_NEG, m_i, m_safe)
+                                 - m_safe)
+                l_i = l_i * corr + _tree_sum(pr)
+                acc = acc * corr[..., None] + torch.matmul(pr, v)
+                m_i = m_new
+            parts.append((acc, m_i, l_i))
+        if not parts:
+            continue                            # a slot that sees nothing
+        m_all = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+        m_safe = torch.where(m_all > _HALF_NEG, m_all, 0.0)
+        num = torch.zeros_like(parts[0][0])
+        den = torch.zeros_like(parts[0][2])
+        for acc, m_s, l_s in parts:
+            w = torch.exp(torch.where(m_s > _HALF_NEG, m_s, m_safe) - m_safe)
+            den = den + l_s * w
+            num = num + acc * w[..., None]
+        out[s] = num / torch.clamp(den, min=1e-20)[..., None]
+    return out
+
+
 def _launch_dense(q, k_pages, v_pages, page_table, t_new, *, block_k,
                   window, prefix_len, quant_bits, kv_quant, k_scale,
                   v_scale):
@@ -479,21 +610,31 @@ def _launch_dense(q, k_pages, v_pages, page_table, t_new, *, block_k,
     for t in (k_pages, v_pages, k_scale, v_scale):
         if t is not None and not t.is_contiguous():
             raise ValueError("dense_decode kernel needs contiguous pools")
+    _check_aligned("dense_decode", k_pages, v_pages, k_scale, v_scale)
     o = torch.empty(b, hkv, wdw, n_rep, dh, device=q.device,
                     dtype=torch.float32)
+    wg, n_split = dense_split_shape(b, hkv, wdw, n_rep, page_table.shape[1],
+                                    sm_count(q.device))
+    part_acc = part_ml = None
+    if quant_bits == "none":                   # the split kernel's partials
+        rows = b * hkv * wdw * n_rep * n_split
+        part_acc = torch.empty(rows * dh, device=q.device,
+                               dtype=torch.float32)
+        part_ml = torch.empty(rows * 2, device=q.device, dtype=torch.float32)
     fn = load_library("sla2_decode_paged").dense_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
-                 t_new.data_ptr(), o.data_ptr(), b, wdw, hkv, n_rep, dh,
-                 block_k, page_table.shape[1],
+                 t_new.data_ptr(), o.data_ptr(), _ptr(part_acc),
+                 _ptr(part_ml), b, wdw, hkv, n_rep, dh, block_k,
+                 page_table.shape[1],
                  -1 if window is None else int(window), prefix_len,
                  QUANT_CODES[quant_bits], int(q.dtype == torch.bfloat16),
-                 _POOL_CODES[k_pages.dtype], k_pages.shape[0],
+                 _POOL_CODES[k_pages.dtype], k_pages.shape[0], n_split, wg,
                  1.0 / (dh ** 0.5), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"dense_decode kernel launch failed: CUDA error "
@@ -622,8 +763,9 @@ def _launch_prefill(q, k_pages, v_pages, page_row, *, offset, block_k, n_rep,
     for t in (k_pages, v_pages, k_scale, v_scale):
         if t is not None and not t.is_contiguous():
             raise ValueError("paged_prefill kernel needs contiguous pools")
+    _check_aligned("paged_prefill", k_pages, v_pages, k_scale, v_scale)
     o = torch.empty(h, c, dh, device=q.device, dtype=torch.float32)
-    fn = load_library("sla2_decode_paged").paged_prefill
+    fn = load_library("paged_prefill").paged_prefill
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
                        + [ctypes.c_float, ctypes.c_void_p])

@@ -11,10 +11,9 @@ without one.  Bounds: 1e-4 relative max error in f32 and 2^-7 (two bf16
 ulps) in bf16 for the backward, whose sums run in another order than the
 plain version's; the int8 forward equals its plain version bit for bit on
 the card (PERF.md), bounded here by 1e-3 (fp8 1e-2).  The paged kernels
-(sla2_decode_paged.cu: sla2_decode, dense_decode, paged_prefill) are held
-to 2e-5 with f32 tiles, 1e-3 with int8
-and 1e-2 with fp8 QAT tiles (an exp that differs by an ulp can flip one
-rounded P code).
+(sla2_decode_paged.cu: sla2_decode, dense_decode; paged_prefill.cu) are
+held to 2e-5 with f32 tiles, 1e-3 with int8 and 1e-2 with fp8 QAT tiles
+(an exp that differs by an ulp can flip one rounded P code).
 """
 import numpy as np
 import pytest
@@ -186,18 +185,26 @@ def test_decode_kernel_matches_plain(card, quant, kv_quant, n_rep, w, dtype):
     assert torch.isfinite(o).all() and _rel(o, want) < BOUND[quant]
 
 
-@pytest.mark.parametrize("offset,window,prefix_len,kv_quant,dh", [
-    (0, None, 0, "none", 128), (1024, None, 0, "int8", 128),
-    (512, 256, 48, "fp8", 128), (192, 100, 0, "none", 64)])
-def test_prefill_kernel_matches_plain(card, offset, window, prefix_len,
-                                      kv_quant, dh):
-    g = card
-    hkv, n_rep, bk, c, max_p, n_pages = 4, 5, 64, 256, 64, 100
-    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, torch.bfloat16)
-    q = torch.randn(hkv * n_rep, c, dh, generator=g,
-                    device="cuda").bfloat16()
-    row = torch.zeros(max_p, dtype=torch.int32, device="cuda")
+@pytest.mark.parametrize("c,offset,window,prefix_len,kv_quant,dh,dtype", [
+    (256, 0, None, 0, "none", 128, "bfloat16"),
+    (256, 1024, None, 0, "int8", 128, "bfloat16"),
+    (256, 512, 256, 48, "fp8", 128, "bfloat16"),
+    (256, 192, 100, 0, "none", 64, "bfloat16"),
+    (512, 0, None, 0, "none", 128, "bfloat16"),
+    (512, 1024, None, 0, "none", 128, "bfloat16"),
+    (512, 7680, None, 0, "none", 128, "bfloat16"),   # the ring wraps often
+    (440, 640, None, 0, "none", 128, "bfloat16"),    # tiles straddle heads
+    (256, 512, 256, 48, "int8", 128, "bfloat16"),
+    (200, 320, 100, 16, "none", 64, "float32")])     # f32 q and pool
+def test_prefill_kernel_matches_plain(card, c, offset, window, prefix_len,
+                                      kv_quant, dh, dtype):
+    g, dt = card, getattr(torch, dtype)
+    hkv, n_rep, bk = 4, 5, 64
     used = -(-(offset + c) // bk)
+    max_p, n_pages = used + 8, used + 40
+    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, dt)
+    q = torch.randn(hkv * n_rep, c, dh, generator=g, device="cuda").to(dt)
+    row = torch.zeros(max_p, dtype=torch.int32, device="cuda")
     row[:used] = (torch.randperm(n_pages - 1, generator=g,
                                  device="cuda")[:used] + 1).int()
     kw = dict(offset=offset, block_k=bk, n_rep=n_rep, window=window,
@@ -210,17 +217,38 @@ def test_prefill_kernel_matches_plain(card, offset, window, prefix_len,
     assert _rel(o, KP.paged_flash_prefill_plain(q, kp, vp, row, **kw)) < 2e-5
 
 
-@pytest.mark.parametrize("quant,kv_quant,n_rep,w,window,prefix_len,dtype", [
-    ("none", "none", 5, 1, None, 0, "bfloat16"),
-    ("none", "none", 5, 4, None, 0, "bfloat16"),
-    ("none", "none", 2, 3, 256, 64, "float32"),
-    ("int8", "int8", 5, 1, None, 0, "bfloat16"),
-    ("int8", "fp8", 1, 4, 256, 0, "bfloat16"),
-    ("fp8", "fp8", 5, 4, None, 0, "bfloat16"),
-    ("fp8", "none", 2, 1, 256, 64, "float32"),
-    ("none", "int8", 5, 4, 256, 64, "bfloat16")])
+_BASE = (3000, 700, 1, None)            # None: the table's last position
+_RAGGED = ((3000, 2500, 3100, 2999), (700, 1, 65, 640), (0, 0, 0, 0),
+           (4000, 4001, 3000, 3999))
+_PAGES = ((2560, 2560, 2624, 2624), (640, 704, 640, 768), (0, 0, 0, 0),
+          (64, 128, 192, 256))
+
+
+@pytest.mark.parametrize(
+    "quant,kv_quant,n_rep,w,window,prefix_len,dtype,lengths", [
+        ("none", "none", 5, 1, None, 0, "bfloat16", _BASE),
+        ("none", "none", 5, 4, None, 0, "bfloat16", _BASE),
+        ("none", "none", 2, 3, 256, 64, "float32", _BASE),
+        ("int8", "int8", 5, 1, None, 0, "bfloat16", _BASE),
+        ("int8", "fp8", 1, 4, 256, 0, "bfloat16", _BASE),
+        ("fp8", "fp8", 5, 4, None, 0, "bfloat16", _BASE),
+        ("fp8", "none", 2, 1, 256, 64, "float32", _BASE),
+        ("none", "int8", 5, 4, 256, 64, "bfloat16", _BASE),
+        # lengths at exact page multiples
+        ("none", "none", 5, 1, None, 0, "bfloat16", (2560, 640, 0, 192)),
+        ("none", "none", 5, 4, None, 0, "bfloat16", _PAGES),
+        ("fp8", "int8", 2, 1, None, 0, "bfloat16", (2560, 640, 0, 192)),
+        # rows of one page
+        ("none", "none", 2, 1, 256, 64, "bfloat16", (64, 1, 0, 30)),
+        # more splits than any row has pages
+        ("none", "none", 5, 4, None, 0, "bfloat16", (500, 300, 0, 10)),
+        # W = 4 with ragged lengths
+        ("none", "int8", 5, 4, 256, 64, "bfloat16", _RAGGED),
+        ("int8", "none", 5, 4, None, 0, "bfloat16", _RAGGED)])
 def test_dense_decode_kernel_matches_plain(card, quant, kv_quant, n_rep, w,
-                                           window, prefix_len, dtype):
+                                           window, prefix_len, dtype,
+                                           lengths):
+    """Slot 2 sees nothing and must write exactly 0."""
     g, dt = card, getattr(torch, dtype)
     b, hkv, dh, bk, max_p, n_pages = 4, 4, 128, 64, 64, 200
     kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, dt)
@@ -229,8 +257,13 @@ def test_dense_decode_kernel_matches_plain(card, quant, kv_quant, n_rep, w,
     for s in range(b):
         table[s] = (torch.randperm(n_pages - 1, generator=g,
                                    device="cuda")[:max_p] + 1).int()
-    base = torch.tensor([3000, 700, 1, 64 * max_p - w], device="cuda")
-    t_new = (base[:, None] + torch.arange(w, device="cuda")).int()
+    if isinstance(lengths[0], tuple):
+        t_new = torch.tensor([row[:w] for row in lengths], device="cuda")
+    else:
+        base = torch.tensor([bk * max_p - w if n is None else n
+                             for n in lengths], device="cuda")
+        t_new = base[:, None] + torch.arange(w, device="cuda")
+    t_new = t_new.int()
     t_new[2] = 0                                     # a row that sees nothing
     kw = dict(block_k=bk, window=window, prefix_len=prefix_len,
               quant_bits=quant, kv_quant=kv_quant, k_scale=ks, v_scale=vs)

@@ -29,9 +29,9 @@ def _group(name: str) -> str:
     low = name.lower()
     if "sla2_decode" in low:
         return "sla2_decode kernel"
-    if "dense_decode" in low:
+    if any(t in low for t in ("dense_decode", "dense_split", "dense_combine")):
         return "dense_decode kernel"
-    if "paged_prefill" in low:
+    if any(t in low for t in ("paged_prefill", "prefill_tc", "prefill_f32")):
         return "paged_prefill kernel"
     if any(t in low for t in ("gemm", "gemv", "cutlass", "xmma", "cublas",
                               "nvjet")):
