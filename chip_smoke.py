@@ -11,7 +11,8 @@ run outside a checkout of the repository; each prints its wall time):
  1. device   the card's name and power limit (nvidia-smi);
  2. build    every CUDA source in src/repro_torch/csrc, one nvcc each,
              all started together; registers, spills and shared memory
-             of the paged prefill and dense decode kernels;
+             of the tensor-core kernels (paged prefill, dense decode, the
+             DiT backward's dQ and dK/dV);
  3. kernel   full-width wan-dit-1.3b (random weights from a seed, with the
              zero-initialised adaLN / output tensors filled with seeded
              N(0, 0.02^2)); layer 0's q, k, v of one 32768-token request
@@ -26,15 +27,20 @@ run outside a checkout of the repository; each prints its wall time):
              of the path is set to 0 just before and read just after;
  5. context  the same config at 2 layers: one request of 2 steps through
              the fused and the gather engine, relative norm error < 0.05;
- 6. bwd      the backward kernels (sla2_bwd.cu: dQ, dK/dV) against their
-             plain version on layer 0's q, k, v and routing of one 32768-
-             token request, with o and lse from the int8 forward kernel and
-             a seeded bf16 dO (relative max error <= 2^-7); a sweep over
-             causal x prefix_len x f32/bf16 with invalid padding entries and
-             unselected kv blocks (1e-4 f32, 2^-7 bf16); autograd through
+ 6. bwd      the backward kernels (sla2_bwd.cu: dQ, dK/dV; bf16 on
+             tensor cores, f32 on CUDA cores) against their plain version
+             on layer 0's q, k, v and routing of one 32768-token request,
+             with o and lse from the int8 forward kernel and a seeded bf16
+             dO (relative max error <= 2^-7), and the distribution of the
+             dK/dV run lengths there (valid pairs per kv block); a sweep
+             over causal x prefix_len x f32/bf16 with invalid padding
+             entries, unselected kv blocks and a hot kv block that every
+             query block routes (1e-4 f32, 2^-7 bf16); autograd through
              the kernel-mode op against a dense softmax oracle (f32, 1e-4);
-             CUDA-event times at BH = 12 beside the plain version and the
-             bounds on the bf16 tensor-core and f32 CUDA-core peaks;
+             CUDA-event times at BH = 12 (a loop of 5 launches, as in PRs
+             13-16, beside PR 16's times) beside the plain version, the
+             bounds on the bf16 tensor-core and f32 CUDA-core peaks and
+             the gathered-bytes floor (a tile read per routed pair);
  7. train    make_train_step at full width and depth (int8 QAT forward,
              32768 latents), 3 optimizer steps of 2 microbatches of one
              video (cut from the global batch of 64); every launch count of
@@ -137,9 +143,10 @@ def log(*args):
     print(*args, flush=True)
 
 
-PAGED_KERNELS = ("prefill_tc_kernel", "prefill_f32_kernel",
-                 "dense_split_kernel", "dense_combine_kernel",
-                 "dense_decode_kernel")
+REPORT_KERNELS = ("prefill_tc_kernel", "prefill_f32_kernel",
+                  "dense_split_kernel", "dense_combine_kernel",
+                  "dense_decode_kernel", "sla2_bwd_dq_tc", "sla2_bwd_dkv_tc")
+PR16_BWD_MS = {"dq": 23.639, "dkv": 33.421}   # chip_smoke.py, PR 16, H100 700 W
 
 
 def kernel_resources(report):
@@ -164,16 +171,23 @@ def kernel_resources(report):
     return {n: "; ".join(v) for n, v in zip(names, out.values())}
 
 
-def log_paged_smem():
-    """Dynamic shared memory per block of the redesigned paged kernels at
-    qwen3-14b's shapes (Dh 128, pages of 64 rows, a bf16 pool)."""
+def log_kernel_smem():
+    """Dynamic shared memory per block of the tensor-core kernels: the
+    paged ones at qwen3-14b's shapes (Dh 128, pages of 64 rows, a bf16
+    pool), the DiT backward at its main tiling (d 128, bq 128, bk 64)."""
     import ctypes
 
     from repro_torch.kernels.build import load_library
     pre = load_library("paged_prefill").paged_prefill_smem
     dense = load_library("sla2_decode_paged").dense_split_smem
+    bwd = load_library("sla2_bwd")
     for fn in (pre, dense):
         fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    for name in ("sla2_bwd_dq_smem", "sla2_bwd_dkv_smem"):
+        fn = getattr(bwd, name)
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        log(f"[build] {name[:-5]}_tc at d 128, bq 128, bk 64: "
+            f"{fn(128, 128, 64)} bytes of dynamic shared memory")
     for off in (2 * LM_CHUNK, LM_PROMPTS[0] - LM_CHUNK):
         n_pg = -(-(off + LM_CHUNK) // 64)
         log(f"[build] prefill_tc_kernel at offset {off}: "
@@ -447,6 +461,38 @@ def bwd_bounds(q, idx, valid, bq, bk):
     return out
 
 
+def gather_floor_ms(q, valid, bq, bk):
+    """Least time of a routed backward that reads its tiles once per pair
+    (the L2 catching no repeat): dQ gathers a K and a V tile (bk x d) per
+    valid pair, dK/dV a Q and a dO tile (bq x d) and their lse and dd rows;
+    {kernel: ms at the HBM rate}."""
+    pairs = int(valid.sum())
+    d, es = q.shape[-1], q.element_size()
+    return {"dq": pairs * 2 * bk * d * es / PEAK_BYTES * 1e3,
+            "dkv": pairs * (2 * bq * d * es + 2 * bq * 4) / PEAK_BYTES * 1e3}
+
+
+def run_lengths(idx, valid, t_n):
+    """Valid pairs per (bh, kv block j), the length of each dK/dV run."""
+    import torch
+    counts = torch.zeros(idx.shape[0], t_n, dtype=torch.int32,
+                         device=idx.device)
+    counts.scatter_add_(1, idx.reshape(idx.shape[0], -1).long(),
+                        valid.reshape(idx.shape[0], -1))
+    return counts
+
+
+def force_hot_block(idx, valid, hot):
+    """Routing in which every query block reaches kv block ``hot``: a row
+    that does not route it yet gets it in its last entry, made valid."""
+    import torch
+    has = ((idx == hot) & (valid == 1)).any(-1)
+    idx, valid = idx.clone(), valid.clone()
+    idx[..., -1] = torch.where(has, idx[..., -1], hot)
+    valid[..., -1] = torch.where(has, valid[..., -1], 1)
+    return idx, valid
+
+
 def phase_bwd(model, params, reqs):
     import torch
     from repro_torch.core import router as R
@@ -480,16 +526,23 @@ def phase_bwd(model, params, reqs):
         if not all(e <= BF16_TWO_ULPS for e in errs):
             raise AssertionError("backward kernels disagree with their "
                                  "plain version at the main shape")
+        runs = run_lengths(idx, valid, N_LAT // bk).float()
+        log(f"[bwd] dK/dV run lengths at the main shape (valid pairs per "
+            f"(bh, kv block)): mean {float(runs.mean()):.2f}, p99 "
+            f"{float(torch.quantile(runs, 0.99)):.0f}, max "
+            f"{int(runs.max())}, empty {int((runs == 0).sum())} of "
+            f"{runs.numel()}")
 
-        n_cases = invalid = unvisited = 0
+        n_cases = invalid = unvisited = hot_runs = 0
         for dtype in (torch.float32, torch.bfloat16):
-            for causal, prefix_len, shape, kf in (
-                    (False, 0, (3, 1024, 128, 128, 64), 0.1),
-                    (True, 0, (3, 1024, 128, 128, 64), 0.5),
-                    (True, 192, (3, 1024, 128, 128, 64), 0.5),
-                    (True, 0, (2, 512, 64, 64, 32), 0.5),
-                    (False, 0, (4, 256, 32, 32, 16), 0.25),
-                    (True, 48, (4, 256, 32, 32, 16), 0.5)):
+            for causal, prefix_len, shape, kf, hot in (
+                    (False, 0, (3, 1024, 128, 128, 64), 0.1, None),
+                    (True, 0, (3, 1024, 128, 128, 64), 0.5, None),
+                    (True, 192, (3, 1024, 128, 128, 64), 0.5, None),
+                    (True, 0, (2, 512, 64, 64, 32), 0.5, None),
+                    (False, 0, (4, 256, 32, 32, 16), 0.25, None),
+                    (True, 48, (4, 256, 32, 32, 16), 0.5, None),
+                    (False, 0, (2, 8192, 128, 128, 64), 0.05, 5)):
                 bh, n, d, sbq, sbk = shape
                 sq, sk, sv, sdo = ((torch.randn(bh, n, d, generator=g,
                                                 device=DEV) * 0.5
@@ -498,6 +551,13 @@ def phase_bwd(model, params, reqs):
                     block_q=sbq, block_k=sbk, k_frac=kf, causal=causal,
                     prefix_len=prefix_len))
                 sval = sval.to(torch.int32)
+                if hot is not None:             # every query block routes it
+                    si, sval = force_hot_block(si, sval, hot)
+                    hot_runs = int(run_lengths(si, sval, n // sbk)[:, hot]
+                                   .min())
+                    if hot_runs != n // sbq:
+                        raise AssertionError("the hot kv block is not "
+                                             "routed by every query block")
                 skw = dict(block_q=sbq, block_k=sbk, causal=causal,
                            prefix_len=prefix_len)
                 so, sl = sparse_flash_fwd(sq, sk, sv, si, sval, **skw)
@@ -520,11 +580,12 @@ def phase_bwd(model, params, reqs):
                 unvisited += int((~seen).sum())
                 n_cases += 1
         log(f"[bwd] sweep: {n_cases} cases within bounds (f32 1e-4, bf16 "
-            f"2^-7), with {invalid} invalid padding entries and "
-            f"{unvisited} kv blocks no valid pair visits")
-        if not (invalid and unvisited):
-            raise AssertionError("the sweep missed padding or unvisited "
-                                 "blocks")
+            f"2^-7), with {invalid} invalid padding entries, {unvisited} "
+            f"kv blocks no valid pair visits and a hot kv block routed by "
+            f"all {hot_runs} query blocks of its head")
+        if not (invalid and unvisited and hot_runs):
+            raise AssertionError("the sweep missed padding, unvisited or "
+                                 "hot blocks")
 
     # autograd through the kernel-mode op against a dense softmax oracle
     rcfg = R.RouterConfig(block_q=32, block_k=16, k_frac=0.3)
@@ -563,15 +624,19 @@ def phase_bwd(model, params, reqs):
             "dkv": cuda_ms(lambda: B.sparse_flash_dkv_plain(
                 q, k, v, idx, valid, o, lse, do, **kw), iters=1, warmup=1)}
     bounds = bwd_bounds(q, idx, valid, bq, bk)
+    floors = gather_floor_ms(q, valid, bq, bk)
     for name in ("dq", "dkv"):
         b16, by, f32 = bounds[name]
-        log(f"[bwd] BH={q.shape[0]} {name}: kernel {times[name]:.3f} ms, "
-            f"plain {plain[name]:.3f} ms, bound {b16:.4f} ms ({by}, bf16 "
-            f"tensor cores; {f32:.3f} ms on f32 CUDA cores), "
-            f"{b16 / times[name]:.1%} of bound")
+        log(f"[bwd] BH={q.shape[0]} {name}: kernel {times[name]:.3f} ms "
+            f"(PR 16: {PR16_BWD_MS[name]:.3f} ms), plain {plain[name]:.3f} "
+            f"ms, bound {b16:.4f} ms ({by}, bf16 tensor cores; {f32:.3f} ms "
+            f"on f32 CUDA cores), {b16 / times[name]:.1%} of bound; "
+            f"gathered-bytes floor {floors[name]:.4f} ms, "
+            f"{floors[name] / times[name]:.1%} of it")
     log(f"[bwd] whole wrapper (dd, pair sort, both kernels): {whole:.3f} ms")
     return {"abs_err": {"dq": abs_errs[0], "dkv": max(abs_errs[1:])},
-            "times": times, "plain": plain, "bounds": bounds}
+            "times": times, "plain": plain, "bounds": bounds,
+            "gather_floor": floors}
 
 
 def phase_train():
@@ -1687,9 +1752,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for kern, res in kernel_resources(rep).items():
-            if any(k in kern for k in PAGED_KERNELS):
+            if any(k in kern for k in REPORT_KERNELS):
                 log(f"[build] {name}: {kern}: {res}")
-    log_paged_smem()
+    log_kernel_smem()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1773,8 +1838,9 @@ def main() -> int:
             "max_abs_err": bwd["abs_err"][key], "ms": bwd["times"][key],
             "plain_ms": bwd["plain"][key], "bound_ms": b16,
             "bound_by": by16, "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
-            "bound_ms_f32_cuda_cores": f32, "library_ms": None,
-            "library_note": no_library})
+            "bound_ms_f32_cuda_cores": f32,
+            "gather_floor_ms": bwd["gather_floor"][key],
+            "library_ms": None, "library_note": no_library})
     d_abs, d_ms, d_plain, d_bound = lm_kern["decode"]
     w4_ms, w4_plain, w4_bound, _ = lm_spec["w4"]
     by_path = {"lm_serve": lm_serve["launches"]["sla2_decode_paged"],

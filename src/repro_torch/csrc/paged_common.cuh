@@ -1,13 +1,15 @@
 // Helpers shared by the paged-attention sources (sla2_decode_paged.cu,
 // paged_prefill.cu): pool element loads, warp and block reductions, the QAT
-// tile codes, and the few PTX instructions of the Hopper paths (cp.async,
-// ldmatrix, mma.sync bf16).
+// tile codes; the PTX of the Hopper paths (cp.async, ldmatrix, mma.sync bf16)
+// comes from mma_sm90.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -116,65 +118,6 @@ __device__ __forceinline__ float code(int quant, float x, float s) {
 __host__ inline bool shapes_ok(int dh, int bk, int n_rep) {
   return (dh == 64 || dh == 128) && bk % 16 == 0 && bk >= 16 &&
          bk <= BKMAX && n_rep >= 1 && n_rep <= RMAX;
-}
-
-// ---- PTX ----
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous (L2 only).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j.
-__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-// The same, each matrix transposed.
-__device__ __forceinline__ void ldsm_x4_t(unsigned addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// d = a b + d, m16n8k16, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as one bf16x2 register (lo in the low half), rounded to
-// nearest even.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace

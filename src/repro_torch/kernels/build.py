@@ -47,26 +47,30 @@ def _target(name: str) -> Path:
 
 def build_all(names=None) -> dict:
     """Compile every missing library in parallel (one nvcc per source);
-    returns {name: ptxas report}.  Raises with nvcc's stderr on failure."""
+    returns {name: ptxas report}, kept beside each library for the ones
+    built before.  Raises with nvcc's stderr on failure."""
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, reports = {}, {}
     for name in names:
         out = _target(name)
         if out.exists():
+            log = out.with_suffix(".ptxas")
+            reports[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, out)
-    reports, errors = {}, []
+    errors = []
     for name, (proc, tmp, out) in procs.items():
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu ({proc.returncode}):"
                           f"\n{stderr}{stdout}")
             continue
+        out.with_suffix(".ptxas").write_text(stderr)
         os.replace(tmp, out)
         reports[name] = stderr
     if errors:

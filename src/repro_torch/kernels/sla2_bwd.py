@@ -16,11 +16,19 @@ In f32 from the upcast tiles, for query block i and routed kv block j:
     dQ_i += ds k_j                 (kernel ``sla2_bwd_dq``: one block per
                                    (bh, query rows), ascending over jj)
     dV_j += p^T dO_i;  dK_j += ds^T q_i
-                                   (kernel ``sla2_bwd_dkv``: one block per
-                                   (bh, j), along the pairs sorted by j)
+                                   (kernel ``sla2_bwd_dkv``: along the pairs
+                                   sorted by j, ascending in i)
 
 dQ is written in q's dtype; dK and dV accumulate in f32 and are cast to
 q's dtype.  A kv block that no valid pair visits gets zeros.
+
+bf16 operands run the tensor-core kernels, f32 operands the CUDA-core
+ones.  On bf16 the dK/dV runs are cut into work items of at most
+``DKV_ITEM`` pairs (``dkv_split_plan``, derived on the device from the run
+offsets): a kv block that many query blocks route would otherwise hold one
+block for its whole run while the rest of the card idles.  A run of one
+item writes dK, dV; the items of a longer run write f32 partials that a
+combine kernel adds in item order (``sparse_flash_dkv_split_plain``).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 from repro_torch.kernels.ops import NEG_INF
 
 _DTYPES = (torch.float32, torch.bfloat16)
+DKV_ITEM = 32           # pairs of a dK/dV work item, at most (csrc/sla2_bwd.cu)
 
 
 def sort_pairs(idx: torch.Tensor, valid: torch.Tensor):
@@ -186,6 +195,84 @@ def sparse_flash_dkv_plain(q, k, v, idx, valid, o, lse, do, *, block_q: int,
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
+def dkv_split_bounds(bh: int, t_n: int, n_pairs: int,
+                     item: int = DKV_ITEM):
+    """(work items, partial slots) at most, for BH x T_n runs over n_pairs
+    sorted pairs per head: each run is max(1, ceil(len / item)) items, and
+    only runs longer than ``item`` take slots, fewer than 2 len / item."""
+    return (bh * t_n + -(-bh * n_pairs // item),
+            max(1, 2 * bh * n_pairs // item))
+
+
+def dkv_split_plan(off, n_items: int, item: int = DKV_ITEM):
+    """The dK/dV work items, derived on ``off``'s device without a host
+    sync.  off (BH, T_n + 1) int32 run offsets.  A run (bh, j) of len pairs
+    is cut into max(1, ceil(len / item)) items of consecutive pairs, item s
+    holding [off + s item, off + (s + 1) item).  Returns (plan, part_base):
+    plan (n_items, 2) int32, each row (run bh * T_n + j, s) in run order,
+    (-1, 0) past the last item; part_base (BH * T_n,) int32, the first
+    partial slot of a run of several items and -1 for a run of one."""
+    dev = off.device
+    lens = (off[:, 1:] - off[:, :-1]).reshape(-1).to(torch.int64)
+    n = torch.where(lens > item, (lens + item - 1) // item, 1)
+    ends = torch.cumsum(n, 0)
+    w = torch.arange(n_items, device=dev)
+    run = torch.searchsorted(ends, w, right=True)
+    last = lens.numel() - 1
+    s = w - (ends - n)[run.clamp(max=last)]
+    past = run > last
+    plan = torch.stack([torch.where(past, -1, run),
+                        torch.where(past, 0, s)], dim=-1).to(torch.int32)
+    slots = torch.where(n > 1, n, 0)
+    part_base = torch.where(n > 1, torch.cumsum(slots, 0) - slots, -1)
+    return plan.contiguous(), part_base.to(torch.int32)
+
+
+def sparse_flash_dkv_split_plain(q, k, v, idx, valid, o, lse, do, *,
+                                 block_q: int, block_k: int, causal: bool,
+                                 prefix_len: int = 0, item: int = DKV_ITEM):
+    """Plain version of the bf16 dK/dV kernels' work split: every item of
+    ``dkv_split_plan`` sums p^T dO and ds^T q over its pairs in ascending
+    order (f32); a run of one item is its dK, dV; the partials of a longer
+    run are added in item order.  Returns (dk, dv) in q's dtype."""
+    bh, _, d = q.shape
+    n_kv = k.shape[1]
+    t_n = n_kv // block_k
+    sm_scale = 1.0 / (d ** 0.5)
+    qb, dob, kb, vb, lse_b, dd_b = _tiles(q, k, v, o, lse, do, block_q,
+                                          block_k)
+    _, is_, vs, off = kernel_inputs(o, do, idx, valid, t_n)
+    n_items, _ = dkv_split_bounds(bh, t_n, vs.shape[-1], item)
+    plan, part_base = dkv_split_plan(off, n_items, item)
+    ar_q = torch.arange(block_q, device=q.device)
+    ar_k = torch.arange(block_k, device=q.device)
+    dk = torch.zeros(bh, t_n, block_k, d, device=q.device)
+    dv = torch.zeros_like(dk)
+    for run, s in plan.tolist():        # runs in order, items in order
+        if run < 0:
+            break
+        b, j = divmod(run, t_n)
+        p0 = int(off[b, j]) + s * item
+        p1 = min(int(off[b, j + 1]), p0 + item)
+        pk = torch.zeros(block_k, d, device=q.device)
+        pv = torch.zeros_like(pk)
+        for p in range(p0, p1):
+            if int(vs[b, p]) != 1:
+                continue
+            i = int(is_[b, p])
+            pr = _probs(qb[b, i], kb[b, j], lse_b[b, i], i * block_q + ar_q,
+                        j * block_k + ar_k, sm_scale=sm_scale, causal=causal,
+                        prefix_len=prefix_len)
+            dp = dob[b, i] @ vb[b, j].T
+            ds = pr * (dp - dd_b[b, i][:, None]) * sm_scale
+            pv = pv + pr.T @ dob[b, i]
+            pk = pk + ds.T @ qb[b, i]
+        dk[b, j] += pk                  # the combine's order
+        dv[b, j] += pv
+    return (dk.reshape(bh, n_kv, d).to(q.dtype),
+            dv.reshape(bh, n_kv, d).to(q.dtype))
+
+
 def sparse_flash_bwd_plain(q, k, v, idx, valid, o, lse, do, **kw):
     """Plain PyTorch version of the two kernels: (dq, dk, dv)."""
     return (sparse_flash_dq_plain(q, k, v, idx, valid, o, lse, do, **kw),
@@ -243,10 +330,10 @@ def kernel_inputs(o, do, idx, valid, t_n: int):
     return dd, is_, vs, segment_offsets(js, t_n)
 
 
-def _fn(lib, name, n_ptr):
+def _fn(lib, name, n_ptr, n_int=10):
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -280,19 +367,35 @@ def launch_dq(q, k, v, do, lse, dd, idx, valid, *, block_q, block_k, causal,
 
 def launch_dkv(q, k, v, do, lse, dd, is_, vs, off, *, block_q, block_k,
                causal, prefix_len):
-    """Launch ``sla2_bwd_dkv`` on the current stream; returns (dk, dv)."""
+    """Launch the dK/dV kernels on the current stream; returns (dk, dv).
+    On bf16 the work-item plan and the partials come first, on the device
+    (no host sync)."""
     from repro_torch.kernels.build import load_library
+    bh, n_q, d = q.shape
+    t_n = k.shape[1] // block_k
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _fn(load_library("sla2_bwd"), "sla2_sparse_bwd_dkv", 11)
+    plan = part_base = part = None
+    n_items = 0
+    if q.dtype == torch.bfloat16:
+        n_items, n_slots = dkv_split_bounds(bh, t_n, vs.shape[-1])
+        plan, part_base = dkv_split_plan(off, n_items)
+        part = torch.empty(n_slots * 2 * block_k * d, device=q.device,
+                           dtype=torch.float32)
+    fn = _fn(load_library("sla2_bwd"), "sla2_sparse_bwd_dkv", 14, 11)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), dd.data_ptr(), is_.data_ptr(),
-                 vs.data_ptr(), off.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 *_sizes(q, k, vs.shape[-1] * block_q // q.shape[1], block_q,
-                         block_k, causal, prefix_len),
-                 1.0 / (q.shape[-1] ** 0.5),
+                 vs.data_ptr(), off.data_ptr(), _ptr(plan), _ptr(part_base),
+                 _ptr(part), dk.data_ptr(), dv.data_ptr(),
+                 *_sizes(q, k, vs.shape[-1] * block_q // n_q, block_q,
+                         block_k, causal, prefix_len), n_items,
+                 1.0 / (d ** 0.5),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sla2_bwd_dkv launch failed: CUDA error {err}")
     sparse_flash_bwd.launches_dkv += 1
     return dk, dv
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()

@@ -53,15 +53,30 @@ def _case(g, shape, dtype, causal, prefix_len, k_frac):
     return q, k, v, do, idx, valid.to(torch.int32)
 
 
+def _force_hot(idx, valid, hot):
+    """Every query block routes kv block ``hot`` (in its last entry if it
+    did not already)."""
+    has = ((idx == hot) & (valid == 1)).any(-1)
+    idx, valid = idx.clone(), valid.clone()
+    idx[..., -1] = torch.where(has, idx[..., -1], hot)
+    valid[..., -1] = torch.where(has, valid[..., -1], 1)
+    return idx, valid
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,causal,prefix_len,k_frac", [
-    ((2, 256, 64, 32, 16), True, 48, 0.5),
-    ((3, 1024, 128, 128, 64), False, 0, 0.1),
-    ((2, 512, 64, 64, 32), True, 0, 0.5)])
+@pytest.mark.parametrize("shape,causal,prefix_len,k_frac,hot", [
+    ((2, 256, 64, 32, 16), True, 48, 0.5, None),
+    ((3, 1024, 128, 128, 64), False, 0, 0.1, None),
+    ((2, 512, 64, 64, 32), True, 0, 0.5, None),
+    ((2, 4096, 128, 128, 64), False, 0, 0.05, None),    # the main tiling
+    ((2, 8192, 128, 128, 64), False, 0, 0.05, 7),       # a hot kv block
+    ((2, 1024, 64, 64, 32), True, 0, 0.25, 3)])
 def test_bwd_kernels_match_plain(card, shape, causal, prefix_len, k_frac,
-                                 dtype):
+                                 hot, dtype):
     q, k, v, do, idx, valid = _case(card, shape, getattr(torch, dtype),
                                     causal, prefix_len, k_frac)
+    if hot is not None:
+        idx, valid = _force_hot(idx, valid, hot)
     kw = dict(block_q=shape[3], block_k=shape[4], causal=causal,
               prefix_len=prefix_len)
     o, lse = sparse_flash_fwd(q, k, v, idx, valid, **kw)
