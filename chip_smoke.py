@@ -11,16 +11,19 @@ run outside a checkout of the repository; each prints its wall time):
  1. device   the card's name and power limit (nvidia-smi);
  2. build    every CUDA source in src/repro_torch/csrc, one nvcc each,
              all started together; registers, spills and shared memory
-             of the tensor-core kernels (paged prefill, dense decode, the
-             DiT backward's dQ and dK/dV);
+             of the tensor-core and split kernels (paged prefill, dense
+             and SLA2 split decode and their combines, the DiT forward's
+             pre-pass and main kernel, the backward's dQ and dK/dV);
  3. kernel   full-width wan-dit-1.3b (random weights from a seed, with the
              zero-initialised adaLN / output tensors filled with seeded
              N(0, 0.02^2)); layer 0's q, k, v of one 32768-token request
              and its routing go through sparse_flash_fwd (CUDA) and its
              plain PyTorch version on the card (int8, bf16, BH = 12); then a
              sweep over quant x causal x prefix_len x kv_len x dtype; then
-             CUDA-event timings at BH = 12 and 24 beside the plain version
-             and the bound;
+             CUDA-event timings at BH = 12 and 24 beside the time before
+             its redesign, the plain version, the operations bound and the gathered-bytes
+             floor (a K and V code tile per valid routed pair, plus the
+             int8 pre-pass);
  4. serve    DiffusionEngine(attn_impl="fused", n_latent=32768,
              max_slots=2) at full width serves 3 requests (2, 3, 2 steps,
              the third joining after the first step); every launch count
@@ -64,7 +67,9 @@ run outside a checkout of the repository; each prints its wall time):
              x prefix_len x kv_quant (prefill at offsets 0, 1024 and 7680,
              the largest error logged); CUDA-event times beside the
              plain versions, the bounds and, for prefill at offsets 1024
-             and 7680, SDPA over the gathered K/V;
+             and 7680, SDPA over the gathered K/V; sla2_decode timed as a
+             loop of calls and from a CUDA graph, beside the time before
+             its redesign;
 11. lm-serve ServeEngine(max_slots=4, max_len=32768, prefill_chunk=512,
              paged_impl="fused") serves four seeded prompts of 8192, 3000,
              1000 and 200 tokens, 32 new tokens each, the fourth submitted
@@ -83,7 +88,8 @@ run outside a checkout of the repository; each prints its wall time):
              greedy tokens equal lm-serve's (a request may stop being
              compared only where lm-serve's top-2 logit margin is below
              the bf16 resolution of its logit); layer 0's first W = 4
-             verify call of a full batch against its plain version, timed;
+             verify call of a full batch against its plain version, timed
+             as a loop of calls and from a CUDA graph;
 14. lm-dense-kernel  a mechanism="full" qwen3-14b sharing every tensor of
              the SLA2 weights but the sla2 leaves: layer 0's dense decode
              inputs and a W = 4 verify window (n-gram drafts), captured
@@ -145,8 +151,16 @@ def log(*args):
 
 REPORT_KERNELS = ("prefill_tc_kernel", "prefill_f32_kernel",
                   "dense_split_kernel", "dense_combine_kernel",
-                  "dense_decode_kernel", "sla2_bwd_dq_tc", "sla2_bwd_dkv_tc")
+                  "dense_decode_kernel", "sla2_bwd_dq_tc", "sla2_bwd_dkv_tc",
+                  "sla2_fwd_int8_mma", "sla2_fwd_quant_kv",
+                  "sla2_decode_split_kernel", "sla2_decode_combine_kernel")
 PR16_BWD_MS = {"dq": 23.639, "dkv": 33.421}   # chip_smoke.py, PR 16, H100 700 W
+# Times of these kernels before their redesign (the forward quantising K
+# and V per routed pair, the SLA2 decode one block per row), chip_smoke.py
+# on an H100 80GB HBM3 at 700 W; quoted in the log text only, never in the
+# kernels line
+PRIOR_MS = {"fwd": {12: 9.036, 24: 17.560}, "decode": 0.4047,
+            "decode_w4": 0.4733}
 
 
 def kernel_resources(report):
@@ -172,22 +186,30 @@ def kernel_resources(report):
 
 
 def log_kernel_smem():
-    """Dynamic shared memory per block of the tensor-core kernels: the
-    paged ones at qwen3-14b's shapes (Dh 128, pages of 64 rows, a bf16
-    pool), the DiT backward at its main tiling (d 128, bq 128, bk 64)."""
+    """Dynamic shared memory per block of the tensor-core and split
+    kernels: the paged ones at qwen3-14b's shapes (Dh 128, pages of 64
+    rows, a bf16 pool, n_rep 5), the DiT forward and backward at their
+    main tiling (d 128, bq 128, bk 64)."""
     import ctypes
 
     from repro_torch.kernels.build import load_library
     pre = load_library("paged_prefill").paged_prefill_smem
     dense = load_library("sla2_decode_paged").dense_split_smem
+    dsplit = load_library("sla2_decode_paged").sla2_decode_split_smem
     bwd = load_library("sla2_bwd")
-    for fn in (pre, dense):
+    for fn in (pre, dense, dsplit):
         fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    fwd = load_library("sla2_fwd").sla2_fwd_int8_smem
+    fwd.argtypes, fwd.restype = [ctypes.c_int] * 3, ctypes.c_int
+    log(f"[build] sla2_fwd_int8_mma at d 128, bq 128, bk 64: "
+        f"{fwd(128, 128, 64)} bytes of dynamic shared memory")
     for name in ("sla2_bwd_dq_smem", "sla2_bwd_dkv_smem"):
         fn = getattr(bwd, name)
         fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
         log(f"[build] {name[:-5]}_tc at d 128, bq 128, bk 64: "
             f"{fn(128, 128, 64)} bytes of dynamic shared memory")
+    log(f"[build] sla2_decode_split_kernel at n_rep 5: "
+        f"{dsplit(5, 64, 128, 2)} bytes of dynamic shared memory")
     for off in (2 * LM_CHUNK, LM_PROMPTS[0] - LM_CHUNK):
         n_pg = -(-(off + LM_CHUNK) // 64)
         log(f"[build] prefill_tc_kernel at offset {off}: "
@@ -279,6 +301,20 @@ def bound_ms(q, idx, valid, bq, bk):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def fwd_gather_floor_ms(q, valid, bq, bk):
+    """Gathered-bytes floor of the int8 forward: a K and a V code tile
+    read per valid routed pair (bk x d and d x vt_keys(bk) int8), plus the
+    pre-pass (K and V read once, their codes and scales written once), q
+    read, o and lse written, idx and valid read, over the HBM rate."""
+    from repro_torch.kernels.sla2_fwd import vt_keys
+    bh, n, d = q.shape
+    es, t_n, tile = q.element_size(), n // bk, (bk + vt_keys(bk)) * d
+    nbytes = (int(valid.sum()) * tile
+              + 2 * bh * n * d * es + bh * t_n * tile + 2 * bh * t_n * 4
+              + 2 * q.numel() * es + bh * n * 4 + 2 * valid.numel() * 4)
+    return nbytes / PEAK_BYTES * 1e3
+
+
 def phase_kernel(model, params, reqs):
     import torch
     from repro_torch.core.quant import smooth_k
@@ -356,10 +392,14 @@ def phase_kernel(model, params, reqs):
             plain = cuda_ms(lambda: sparse_flash_fwd_plain(
                 tq, tk, tv, ti, tvl, **kw), iters=2, warmup=1)
             bms, by = bound_ms(tq, ti, tvl, bq, bk)
-            timings[tq.shape[0]] = (ms, plain, bms, by)
-            log(f"[kernel] BH={tq.shape[0]}: kernel {ms:.3f} ms, plain "
-                f"{plain:.3f} ms, bound {bms:.4f} ms ({by}), "
-                f"{bms / ms:.1%} of bound")
+            floor = fwd_gather_floor_ms(tq, tvl, bq, bk)
+            timings[tq.shape[0]] = (ms, plain, bms, by, floor)
+            log(f"[kernel] BH={tq.shape[0]}: kernel {ms:.3f} ms (before the "
+                f"redesign: {PRIOR_MS['fwd'][tq.shape[0]]:.3f} ms), plain "
+                f"{plain:.3f} "
+                f"ms, bound {bms:.4f} ms ({by}), {bms / ms:.1%} of bound; "
+                f"gathered-bytes floor {floor:.4f} ms, {floor / ms:.1%} of "
+                f"it; valid routed pairs {int(tvl.sum())}")
     return {"max_abs_err": abs_err, "rel_err": err, "timings": timings}
 
 
@@ -1057,6 +1097,10 @@ def phase_lm_kernel(model, params):
             f"max rel err {pre_err:.3e}")
 
         d_ms = cuda_ms(lambda: KP.sla2_decode_fused(*dargs, **dkw), iters=50)
+        d_graph = graph_ms(lambda: KP.sla2_decode_fused(*dargs, **dkw))
+        d_eps = KP.decode_split_shape(*dargs[0].shape[:2],
+                                      dargs[3].shape[-1],
+                                      KP.sm_count(dargs[0].device))
         d_plain = cuda_ms(lambda: KP.sla2_decode_fused_plain(*dargs, **dkw),
                           iters=3, warmup=1)
         d_bound = decode_bound_ms(dargs)
@@ -1089,9 +1133,12 @@ def phase_lm_kernel(model, params):
                                       None, 0)
         l_bound = max(l_ops / PEAK_BF16_OPS, l_bytes / PEAK_BYTES) * 1e3
         l_lib = sdpa_ms(lq, pargs[1], pargs[2], lrow, long_off, pkw["n_rep"])
-    log(f"[lm-kernel] decode: kernel {d_ms:.4f} ms, plain {d_plain:.3f} ms, "
-        f"bound {d_bound:.4f} ms (bytes), {d_bound / d_ms:.1%} of bound; "
-        f"library: none")
+    log(f"[lm-kernel] decode: kernel {d_ms:.4f} ms in a loop of calls "
+        f"({d_graph:.4f} ms from a CUDA graph; before the redesign "
+        f"{PRIOR_MS['decode']:.4f} ms in the loop), {d_eps[1]} splits of "
+        f"{d_eps[0]} entries, plain {d_plain:.3f} ms, bound {d_bound:.4f} "
+        f"ms (bytes), {d_bound / d_ms:.1%} of bound ({d_bound / d_graph:.1%}"
+        f" from the graph); library: none")
     log(f"[lm-kernel] prefill (offset {pkw['offset']}, C {c}): kernel "
         f"{p_ms:.3f} ms, plain {p_plain:.3f} ms, bound {p_bound:.4f} ms "
         f"({p_by}, bf16 tensor cores; {max(t_f32, t_bytes):.3f} ms on f32 "
@@ -1104,7 +1151,7 @@ def phase_lm_kernel(model, params):
         f"{l_lib:.3f} ms")
     del got, dargs, pargs
     free_cuda()
-    return {"decode": (d_abs, d_ms, d_plain, d_bound),
+    return {"decode": (d_abs, d_ms, d_plain, d_bound, d_graph, d_eps),
             "prefill": (p_abs, p_ms, p_plain, p_bound, p_by, t_f32, p_lib),
             "prefill_long": (l_ms, l_bound, l_lib), "sweep_err": pre_err}
 
@@ -1325,20 +1372,28 @@ def phase_lm_spec(model, params, serve):
         torch.cuda.synchronize()
         err = rel_err(o, KP.sla2_decode_verify_plain(*args, **kw))
         ms = cuda_ms(lambda: KP.sla2_decode_verify(*args, **kw), iters=50)
+        ms_graph = graph_ms(lambda: KP.sla2_decode_verify(*args, **kw))
         plain = cuda_ms(lambda: KP.sla2_decode_verify_plain(*args, **kw),
                         iters=2, warmup=1)
     bound = decode_bound_ms(args)
+    eps = KP.decode_split_shape(*args[0].shape[:2], args[3].shape[-1],
+                                KP.sm_count(args[0].device))
     log(f"[lm-spec] layer-0 verify window of the dispatch with the most "
         f"decoding slots ({got['n_dec']}): q{tuple(args[0].shape)}, K_sel "
         f"{args[3].shape[-1]}, t_new {args[7].tolist()}: rel max err "
-        f"{err:.3e} (bound 2e-5); kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-        f"bound {bound:.4f} ms (bytes), {bound / ms:.1%} of bound")
+        f"{err:.3e} (bound 2e-5); kernel {ms:.4f} ms in a loop of calls "
+        f"({ms_graph:.4f} ms from a CUDA graph; before the redesign "
+        f"{PRIOR_MS['decode_w4']:.4f} ms in the loop), {eps[1]} splits of "
+        f"{eps[0]} entries, plain {plain:.3f} ms, bound {bound:.4f} ms "
+        f"(bytes), {bound / ms:.1%} of bound ({bound / ms_graph:.1%} from the "
+        f"graph)")
     if not err < BOUNDS["none"]:
         raise AssertionError("[lm-spec] the verify kernel disagrees with its "
                              "plain version")
     del args, kw
     free_cuda()
-    run.update(stops=stops, rate=rate, w4=(ms, plain, bound, err))
+    run.update(stops=stops, rate=rate,
+               w4=(ms, plain, bound, err, ms_graph, eps))
     return run
 
 
@@ -1809,7 +1864,7 @@ def main() -> int:
     timed("lm-context", phase_lm_context)
     timed("lm-spec-context", phase_lm_spec_context)
 
-    ms, plain, bms, by = kern["timings"][dit_heads]
+    ms, plain, bms, by, floor = kern["timings"][dit_heads]
     no_library = ("no single PyTorch call computes a routed block-sparse "
                   "attention backward; dense SDPA's backward is another "
                   "function")
@@ -1822,6 +1877,7 @@ def main() -> int:
                              "train": train["sparse_flash_fwd"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "gather_floor_ms": floor,
         "library_ms": None,
         "library_note": "no single PyTorch call computes routed int8 "
                         "block-sparse attention; dense SDPA is another "
@@ -1841,8 +1897,8 @@ def main() -> int:
             "bound_ms_f32_cuda_cores": f32,
             "gather_floor_ms": bwd["gather_floor"][key],
             "library_ms": None, "library_note": no_library})
-    d_abs, d_ms, d_plain, d_bound = lm_kern["decode"]
-    w4_ms, w4_plain, w4_bound, _ = lm_spec["w4"]
+    d_abs, d_ms, d_plain, d_bound, d_graph, d_eps = lm_kern["decode"]
+    w4_ms, w4_plain, w4_bound, _, w4_graph, w4_eps = lm_spec["w4"]
     by_path = {"lm_serve": lm_serve["launches"]["sla2_decode_paged"],
                "lm_spec_linear": lm_spec["launches"]["sla2_decode_paged"]}
     rows.append({
@@ -1853,6 +1909,10 @@ def main() -> int:
         "max_abs_err": d_abs, "ms": d_ms, "plain_ms": d_plain,
         "bound_ms": d_bound, "bound_by": "bytes", "ms_w4": w4_ms,
         "plain_ms_w4": w4_plain, "bound_ms_w4": w4_bound,
+        "ms_graph": d_graph, "ms_w4_graph": w4_graph,
+        "entries_per_split": d_eps[0], "entries_per_split_w4": w4_eps[0],
+        "timing": "ms: a loop of 50 wrapper calls between CUDA events; "
+                  "*_graph: 20 calls replayed from a CUDA graph",
         "library_ms": None,
         "library_note": "no PyTorch call computes routed paged attention "
                         "with the linear complement and the alpha combine"})

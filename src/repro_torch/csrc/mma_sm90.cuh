@@ -1,7 +1,8 @@
 // The few PTX instructions of the port's Hopper tensor-core paths, shared by
-// paged_prefill.cu (through paged_common.cuh) and sla2_bwd.cu: cp.async,
-// ldmatrix and mma.sync bf16.  Functions only, no constants, so that each
-// source keeps its own tile sizes.
+// paged_prefill.cu and sla2_decode_paged.cu (through paged_common.cuh),
+// sla2_bwd.cu and sla2_fwd.cu: cp.async, ldmatrix, mma.sync bf16 and s8.
+// Functions only, no constants, so that each source keeps its own tile
+// sizes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,6 +57,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a b + c, m16n8k32, s8 operands, exact s32 accumulators.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0,
+                                       int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

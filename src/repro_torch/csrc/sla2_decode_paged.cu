@@ -13,34 +13,67 @@
 // or int8 / e4m3 codes with one f32 scale per token row (kv_quant), which
 // are dequantised on load as codes * scale.
 //
-// sla2_decode: one block per (slot x KV head, window row).  It walks the
-// row's K_sel routed entries in ascending jj and skips invalid ones without
-// loading anything (the trash page is never read).  For each routed page:
-//   - the K and V tiles (bk x Dh) are loaded once, as f32 in shared memory;
-//   - S = q k^T for the n_rep query heads of the group, f32, times sm_scale;
-//     with quant_bits int8 / fp8 the per-tile codes of kernel 1 (q, k and v
-//     per tile, P at the fixed scale 1/127 for int8 and per tile for fp8;
-//     int8 products are exact in f32 sums);
-//   - the mask cols < t with NEG_INF = -1e30 and the m_safe / corr online
-//     softmax of the reference; a row's P sum is taken as p[kk] + p[kk+32]
-//     per lane and then a butterfly over the warp (the plain version
-//     repeats that order);
-//   - when the block is complete, phi(q) phi(k)^T v and its row sum go into
-//     lnum / lden from the same resident tiles (phi = softmax over Dh).
-// The finalize reads h_tot once: o_l = (phi(q) h_tot - lnum) / (phi(q) z_tot
-// - lden) with the 1e-4 * den_tot + 1e-12 threshold, a_eff = 1 where the
-// complement is empty, and the sigmoid combine.  A row whose entries are all
-// invalid writes the defined output of the reference (o_s = 0).
+// sla2_decode computes, per (slot x KV head, window row), what the Pallas
+// _decode_kernel computes: the row's K_sel routed entries in ascending jj,
+// invalid ones skipped without loading anything (the trash page is never
+// read); for each routed page S = q k^T for the n_rep query heads of the
+// group (f32, times sm_scale; with quant_bits int8 / fp8 the per-tile codes
+// of kernel 1), the mask cols < t with NEG_INF = -1e30, the m_safe / corr
+// online softmax; for a complete block phi(q) phi(k)^T V and its row sum
+// into lnum / lden (phi = softmax over Dh); then the finalize: o_l =
+// (phi(q) h_tot - lnum) / (phi(q) z_tot - lden) with the 1e-4 * den_tot +
+// 1e-12 threshold, a_eff = 1 where the complement is empty, and the sigmoid
+// combine.  A row whose entries are all invalid writes the reference's
+// defined output (o_s = 0).  A row's P sum is p[kk] + p[kk+32] per lane,
+// then a butterfly over the warp (the plain versions repeat that order).
 // Products and sums that the reference rounds separately are written with
 // __fmul_rn / __fadd_rn so that nvcc does not contract them into FMAs.
 //
-// Bound (qwen3-14b, 4 slots): each block moves K_sel pages of K and V
-// (26 x 2 x 16 KiB in bf16), h_tot (64 KiB) and q / o; about 0.9 MiB per
-// block, 29 MiB per layer, ~9 us at 3.35 TB/s, and a few MFLOP: bound by
-// bytes.  This first design runs on CUDA cores (M = n_rep = 5 rows leaves
-// tensor-core fragments mostly empty) with one block per (slot, KV head):
-// 32 blocks fill a quarter of the 132 SMs.  Splitting K_sel across blocks
-// (flash-decoding, with lnum / lden combined as well) is left for later.
+// Bound (qwen3-14b, 4 slots, W 1): the distinct routed K / V pages (26 x 2
+// x 16 KiB in bf16 per slot and KV head), h_tot (64 KiB a row) and q / o:
+// ~29 MiB a layer, ~9 us at 3.35 TB/s, and a few MFLOP: bound by bytes, and
+// by latency at this size: one block per row walking its 26 pages
+// serially would put 32 blocks on 132 SMs.  Two kernels, selected by
+// quant_bits (a selection by input, not a fallback on failure):
+//
+// sla2_decode_split_kernel + sla2_decode_combine_kernel (quant_bits none,
+// the serving path): flash-decoding.  Grid (slot x KV head, window row,
+// split); a split takes eps consecutive routed entries, eps chosen by the
+// wrapper from the grid's size at one window row (about 8 blocks per SM,
+// but at least 2 entries a split: at one, the combine's partials cost more
+// than the extra blocks buy; 2 at the lm-serve shape, 13 splits).  The
+// window width does not enter the choice: a row's sums depend on its
+// splits, and a verify pass must compute each row bit for bit as the
+// decode step does, or greedy speculative tokens drift from the plain
+// decode's (a verify window with its own split size moved a full-width
+// lm-spec token whose top-2 margin was 0.051).  Window rows stay in
+// separate blocks: each row of a verify window routes its own pages
+// (phys[b, h, w, :]), so a union across rows would buy little; pages that
+// rows share come from L2.  Per split:
+//   - its page-table entries and flags are read first (a warp ballot keeps
+//     the valid ones, in order, in shared memory); a split with none
+//     writes only its count, and the combine skips it;
+//   - K / V pages flow through a 2-page cp.async ring of 16-byte loads in
+//     their storage type (bf16, f32 or int8 / e4m3 codes with their row
+//     scales); S reads a key's row in quads from a rotated start;
+//   - the reference's mask and online softmax; a complete page's phi(k)
+//     rows are formed by a warp each from the resident tile, their dots
+//     with phi(q) a butterfly, and lnum / lden take phi(q) phi(k)^T V and
+//     its row sum; under kv_quant the row scales multiply S's and P's
+//     columns, (q Kc^T) ks and (P vs) Vc;
+//   - the partials (acc, m, l, lnum, lden) per (row, head) go to f32
+//     scratch.
+// The combine (one block per slot x KV head and window row) rescales the
+// softmax partials with the m > HALF_NEG guards of dense_combine_kernel
+// (w_s = exp(m_s' - M'), o_s = sum_s acc_s w_s / max(sum_s l_s w_s,
+// 1e-20)), sums lnum and lden over the splits in ascending order (plain
+// sums, no max to rescale), and runs the finalize above.
+//
+// sla2_decode_kernel (quant_bits int8 / fp8, QAT tiles): P's codes depend
+// on the running max of all earlier pages, so a split would change them.
+// One block per (slot x KV head, window row) walks the row's routed pages
+// serially, as the reference does: K / V tiles dequantised to f32 in
+// shared memory, scalar dot products, per-tile codes of q, k, v and P.
 //
 // dense_decode: no router; every (slot, KV head) reads, in ascending order,
 // only the logical pages its rows can see, computed from the row length t
@@ -98,31 +131,39 @@
 
 namespace {
 
-// Softmax over Dh of row `src` (stride 1) into `dst`, one warp per row:
-// exp(x - max) / sum, as phi computes it.
-__device__ __forceinline__ void warp_softmax(const float* src, float* dst,
-                                             int dh, int lane) {
-  float x[DMAX / 32];
+// Softmax over Dh of a row held by a warp, x[i] its element lane + 32 i:
+// exp(x - max) / sum, as phi computes it (0 past dh).
+__device__ __forceinline__ void warp_softmax_regs(float (&x)[DMAX / 32],
+                                                  int dh, int lane) {
   float mx = NEG_INF;
 #pragma unroll
-  for (int i = 0; i < DMAX / 32; ++i) {
-    const int d = lane + 32 * i;
-    x[i] = d < dh ? src[d] : NEG_INF;
-    mx = fmaxf(mx, x[i]);
-  }
+  for (int i = 0; i < DMAX / 32; ++i) mx = fmaxf(mx, x[i]);
   mx = warp_max(mx);
   float sum = 0.0f;
 #pragma unroll
   for (int i = 0; i < DMAX / 32; ++i) {
-    const int d = lane + 32 * i;
-    x[i] = d < dh ? expf(x[i] - mx) : 0.0f;
+    x[i] = lane + 32 * i < dh ? expf(x[i] - mx) : 0.0f;
     sum = __fadd_rn(sum, x[i]);
   }
   sum = warp_sum(sum);
 #pragma unroll
+  for (int i = 0; i < DMAX / 32; ++i) x[i] = x[i] / sum;
+}
+
+// Softmax over Dh of row `src` (stride 1) into `dst`, one warp per row.
+__device__ __forceinline__ void warp_softmax(const float* src, float* dst,
+                                             int dh, int lane) {
+  float x[DMAX / 32];
+#pragma unroll
   for (int i = 0; i < DMAX / 32; ++i) {
     const int d = lane + 32 * i;
-    if (d < dh) dst[d] = x[i] / sum;
+    x[i] = d < dh ? src[d] : NEG_INF;
+  }
+  warp_softmax_regs(x, dh, lane);
+#pragma unroll
+  for (int i = 0; i < DMAX / 32; ++i) {
+    const int d = lane + 32 * i;
+    if (d < dh) dst[d] = x[i];
   }
 }
 
@@ -390,6 +431,492 @@ sla2_decode_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
     const float o_s = acc[i] / fmaxf(l_r[r], 1e-20f);
     orow[e] = __fadd_rn(__fmul_rn(a_eff, o_s),
                         __fmul_rn(__fadd_rn(1.0f, -a_eff), o_l));
+  }
+}
+
+// ===========================================================================
+// sla2_decode, routed entries split across blocks (quant_bits none)
+// ===========================================================================
+
+constexpr int DSPLIT_STAGES = 2;        // pages in the ring
+constexpr int EPS_MAX = 64;             // routed entries of a split, at most
+
+__host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
+
+struct DSplitLayout {
+  int qv, qf, sc, ls, row, ent, ring, stage, total;   // bytes
+};
+
+__host__ __device__ inline DSplitLayout dsplit_layout(int n_rep, int bk,
+                                                      int dh, int es) {
+  DSplitLayout L;
+  int off = 0;                                // each section 16-byte aligned
+  L.qv = off;  off += n_rep * dh * 4;         // q, f32 [n_rep][dh]
+  L.qf = off;  off += n_rep * dh * 4;         // phi(q)
+  L.sc = off;  off += up16(n_rep * (bk + 1) * 4);   // S, then P
+  L.ls = off;  off += up16(n_rep * (bk + 1) * 4);   // phi(q) phi(k)^T
+  L.row = off; off += 4 * RMAX * 4;           // m, l, corr, lden per row
+  L.ent = off; off += 3 * EPS_MAX * 4 + 16;   // page, block, complete; count
+  off = (off + 127) & ~127;
+  L.ring = off;
+  L.stage = 2 * bk * dh * es + 2 * bk * 4;    // K, V, their row scales
+  off += DSPLIT_STAGES * L.stage;
+  L.total = off;
+  return L;
+}
+
+// One block per (slot x KV head, window row, split): the split's routed
+// entries [sp * eps, sp * eps + eps) through the online softmax and the
+// linear correction, into f32 partials part_o (acc, lnum: 2 x n_rep x Dh)
+// and part_s (m, l, lden: 3 x n_rep, then the count of valid entries).
+template <typename QT, typename PT>
+__global__ void __launch_bounds__(NT, 3)
+sla2_decode_split_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
+                         const PT* __restrict__ vp,
+                         const float* __restrict__ kscale,
+                         const float* __restrict__ vscale,
+                         const int* __restrict__ phys,
+                         const int* __restrict__ jlog,
+                         const int* __restrict__ valid,
+                         const int* __restrict__ comp,
+                         const int* __restrict__ tnew,
+                         float* __restrict__ part_o,
+                         float* __restrict__ part_s, int W, int hkv,
+                         int n_rep, int dh, int bk, int k_sel, int n_pages,
+                         int eps, int n_split, float sm_scale) {
+  constexpr bool SCALED = sizeof(PT) == 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g = blockIdx.x, w = blockIdx.y, sp = blockIdx.z;
+  const int b = g / hkv, head = g - b * hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t gw = (size_t)g * W + w;
+  const DSplitLayout L = dsplit_layout(n_rep, bk, dh, sizeof(PT));
+  float* qv = reinterpret_cast<float*>(smem + L.qv);
+  float* qf = reinterpret_cast<float*>(smem + L.qf);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* lsc = reinterpret_cast<float*>(smem + L.ls);
+  float* m_r = reinterpret_cast<float*>(smem + L.row);
+  float* l_r = m_r + RMAX;
+  float* c_r = l_r + RMAX;
+  float* d_r = c_r + RMAX;
+  int* e_ph = reinterpret_cast<int*>(smem + L.ent);   // physical page
+  int* e_j = e_ph + EPS_MAX;                          // logical block
+  int* e_cm = e_j + EPS_MAX;                          // complete
+  int* e_n = e_cm + EPS_MAX;
+  const int sst = bk + 1, nq = n_rep * dh;
+  float* ps = part_s + (gw * n_split + sp) * (3 * n_rep + 1);
+
+  // ---- the split's valid entries, ascending (warp 0, a ballot) ----
+  const int j0 = sp * eps, ne = min(eps, k_sel - j0);
+  if (tid < 32) {
+    int c = 0;
+    for (int base = 0; base < ne; base += 32) {
+      const int e = base + lane;
+      const size_t at = gw * k_sel + j0 + e;
+      const int ph = e < ne ? phys[at] : -1;
+      const bool ok = e < ne && valid[at] == 1 && ph >= 0 && ph < n_pages;
+      const unsigned m = __ballot_sync(0xffffffffu, ok);
+      if (ok) {
+        const int pos = c + __popc(m & ((1u << lane) - 1u));
+        e_ph[pos] = ph;
+        e_j[pos] = jlog[at];
+        e_cm[pos] = comp[at] == 1;
+      }
+      c += __popc(m);
+    }
+    if (lane == 0) {
+      *e_n = c;
+      ps[3 * n_rep] = (float)c;
+    }
+  }
+  __syncthreads();
+  const int n = *e_n;
+  if (n == 0) return;                   // uniform: the combine skips it
+
+  // ---- the ring: page i of the split lands in stage i % DSPLIT_STAGES ----
+  const int tile_bytes = bk * dh * (int)sizeof(PT);
+  const int chunks = tile_bytes / 16;
+  auto issue = [&](int i) {
+    if (i < n) {
+      unsigned char* st = smem + L.ring + (i % DSPLIT_STAGES) * L.stage;
+      const size_t pg = (size_t)e_ph[i] * hkv + head;
+      const unsigned char* ksrc =
+          reinterpret_cast<const unsigned char*>(kp + pg * bk * dh);
+      const unsigned char* vsrc =
+          reinterpret_cast<const unsigned char*>(vp + pg * bk * dh);
+      for (int e = tid; e < chunks; e += NT) {
+        cp_async16(st + e * 16, ksrc + (size_t)e * 16);
+        cp_async16(st + tile_bytes + e * 16, vsrc + (size_t)e * 16);
+      }
+      if (SCALED)
+        for (int e = tid; e < bk / 4; e += NT) {
+          cp_async16(st + 2 * tile_bytes + e * 16, kscale + pg * bk + 4 * e);
+          cp_async16(st + 2 * tile_bytes + bk * 4 + e * 16,
+                     vscale + pg * bk + 4 * e);
+        }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < DSPLIT_STAGES - 1; ++i) issue(i);
+
+  // ---- q, phi(q) and the row state, while the first page is in flight ----
+  const QT* qrow = q + gw * nq;
+  for (int e = tid; e < nq; e += NT) qv[e] = ldf(qrow, e);
+  if (tid < RMAX) {
+    m_r[tid] = NEG_INF;
+    l_r[tid] = 0.0f;
+    c_r[tid] = 1.0f;
+    d_r[tid] = 0.0f;
+  }
+  __syncthreads();
+  for (int r = warp; r < n_rep; r += NWARP)
+    warp_softmax(qv + r * dh, qf + r * dh, dh, lane);
+
+  // each thread owns the column pairs (r, 2c, 2c + 1) e = tid + NT * u
+  constexpr int PAIRS = RMAX * DMAX / 2 / NT;
+  const int half = dh / 2, nq4 = dh / 4;
+  float2 acc[PAIRS], lnum[PAIRS];
+#pragma unroll
+  for (int u = 0; u < PAIRS; ++u) acc[u] = lnum[u] = make_float2(0.0f, 0.0f);
+  const int t = tnew[(size_t)b * W + w];
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<DSPLIT_STAGES - 2>();
+    __syncthreads();                    // page i landed; page i - 1 read
+    issue(i + DSPLIT_STAGES - 1);       // into page i - 1's stage
+    const unsigned char* st = smem + L.ring + (i % DSPLIT_STAGES) * L.stage;
+    const PT* kt = reinterpret_cast<const PT*>(st);
+    const PT* vt = reinterpret_cast<const PT*>(st + tile_bytes);
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * tile_bytes);
+    const float* vsc = ksc + bk;
+    const int j = e_j[i];
+    const bool cm = e_cm[i] != 0;
+
+    // ---- S for the n_rep x bk tile, masked by cols < t: a key's row read
+    // in quads from a rotated start (the lanes of a warp hit distinct
+    // banks), in four partial sums ----
+    for (int e = tid; e < n_rep * bk; e += NT) {
+      const int r = e / bk, kk = e - r * bk;
+      const float* qr = qv + r * dh;
+      const PT* kr = kt + kk * dh;
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+      for (int u = 0; u < nq4; u += 2) {
+        const int d0 = 4 * ((u + kk) & (nq4 - 1));
+        const int d1 = 4 * ((u + 1 + kk) & (nq4 - 1));
+        const float4 a0 = *reinterpret_cast<const float4*>(qr + d0);
+        const float4 a1 = *reinterpret_cast<const float4*>(qr + d1);
+        const float4 k0 = ld4(kr + d0), k1 = ld4(kr + d1);
+        s0 = fmaf(a0.y, k0.y, fmaf(a0.x, k0.x, s0));
+        s1 = fmaf(a0.w, k0.w, fmaf(a0.z, k0.z, s1));
+        s2 = fmaf(a1.y, k1.y, fmaf(a1.x, k1.x, s2));
+        s3 = fmaf(a1.w, k1.w, fmaf(a1.z, k1.z, s3));
+      }
+      float x = __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
+      if (SCALED) x = __fmul_rn(x, ksc[kk]);
+      x = __fmul_rn(x, sm_scale);
+      sc[r * sst + kk] = j * bk + kk < t ? x : NEG_INF;
+    }
+
+    // ---- a complete block: phi(q) phi(k)^T.  A warp takes 4 key rows at
+    // once, 8 lanes a row (elements sl + 8 i): exp(k - max) stays in
+    // registers, its max, sum and dots with the phi(q) rows reduce over 8
+    // lanes, and each dot is divided by the row's sum once ----
+    if (cm) {
+      const int kg = lane >> 3, sl = lane & 7;
+      for (int k0 = 4 * warp; k0 < bk; k0 += 4 * NWARP) {
+        const int kk = k0 + kg;                   // bk % 16 == 0: kk < bk
+        float x[DMAX / 8];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int u = 0; u < DMAX / 8; ++u) {
+          const int d = sl + 8 * u;
+          float kx = NEG_INF;
+          if (d < dh) {
+            kx = tof(kt[kk * dh + d]);
+            if (SCALED) kx = __fmul_rn(kx, ksc[kk]);
+          }
+          x[u] = kx;
+          mx = fmaxf(mx, kx);
+        }
+        for (int o = 4; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        float sum = 0.0f;
+#pragma unroll
+        for (int u = 0; u < DMAX / 8; ++u) {
+          x[u] = sl + 8 * u < dh ? expf(x[u] - mx) : 0.0f;
+          sum = __fadd_rn(sum, x[u]);
+        }
+        for (int o = 4; o > 0; o >>= 1)
+          sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+        for (int r0 = 0; r0 < n_rep; r0 += 8) {   // 8 rows' dots at once
+          float y[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) y[r] = 0.0f;
+#pragma unroll
+          for (int u = 0; u < DMAX / 8; ++u) {
+            const int d = sl + 8 * u;
+            if (d >= dh) break;
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              if (r0 + r < n_rep) y[r] = fmaf(qf[(r0 + r) * dh + d], x[u], y[r]);
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            if (r0 + r >= n_rep) break;
+            for (int o = 4; o > 0; o >>= 1)
+              y[r] = __fadd_rn(y[r], __shfl_xor_sync(0xffffffffu, y[r], o));
+            if (sl == 0) lsc[(r0 + r) * sst + kk] = y[r] / sum;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- online softmax, one warp per row; lden from the same rows ----
+    for (int r = warp; r < n_rep; r += NWARP) {
+      float* srow = sc + r * sst;
+      const float s0 = lane < bk ? srow[lane] : NEG_INF;
+      const float s1 = lane + 32 < bk ? srow[lane + 32] : NEG_INF;
+      const float m_prev = m_r[r];
+      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float m_safe = m_new > HALF_NEG ? m_new : 0.0f;
+      const float p0 = s0 > HALF_NEG ? expf(s0 - m_safe) : 0.0f;
+      const float p1 = s1 > HALF_NEG ? expf(s1 - m_safe) : 0.0f;
+      const float psum = warp_sum(__fadd_rn(p0, p1));
+      const float corr = expf((m_prev > HALF_NEG ? m_prev : m_safe) - m_safe);
+      // P (and below phi(q) phi(k)^T) times V's row scales under kv_quant
+      if (lane < bk) srow[lane] = SCALED ? __fmul_rn(p0, vsc[lane]) : p0;
+      if (lane + 32 < bk)
+        srow[lane + 32] = SCALED ? __fmul_rn(p1, vsc[lane + 32]) : p1;
+      if (cm) {
+        float* lrow = lsc + r * sst;
+        const float x0 = lane < bk ? lrow[lane] : 0.0f;
+        const float x1 = lane + 32 < bk ? lrow[lane + 32] : 0.0f;
+        const float lsum = warp_sum(__fadd_rn(x0, x1));
+        if (lane == 0) d_r[r] = __fadd_rn(d_r[r], lsum);
+        if (SCALED) {
+          if (lane < bk) lrow[lane] = __fmul_rn(x0, vsc[lane]);
+          if (lane + 32 < bk) lrow[lane + 32] = __fmul_rn(x1, vsc[lane + 32]);
+        }
+      }
+      if (lane == 0) {
+        l_r[r] = __fadd_rn(__fmul_rn(l_r[r], corr), psum);
+        m_r[r] = m_new;
+        c_r[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    // ---- acc = acc * corr + P V; lnum += (phi(q) phi(k)^T) V: columns 2c
+    // and 2c + 1 of a row, even and odd keys in separate sums ----
+#pragma unroll
+    for (int u = 0; u < PAIRS; ++u) {
+      const int e = tid + NT * u;
+      if (e >= n_rep * half) break;
+      const int r = e / half, c2 = 2 * (e - r * half);
+      const PT* vc = vt + c2;
+      const float* prow = sc + r * sst;
+      float x0 = 0.0f, x1 = 0.0f, y0 = 0.0f, y1 = 0.0f;
+      for (int k = 0; k < bk; k += 2) {
+        const float2 v0 = ld2(vc + k * dh), v1 = ld2(vc + (k + 1) * dh);
+        x0 = fmaf(prow[k], v0.x, x0);
+        x1 = fmaf(prow[k], v0.y, x1);
+        y0 = fmaf(prow[k + 1], v1.x, y0);
+        y1 = fmaf(prow[k + 1], v1.y, y1);
+      }
+      const float cr = c_r[r];
+      acc[u].x = __fadd_rn(__fmul_rn(acc[u].x, cr), __fadd_rn(x0, y0));
+      acc[u].y = __fadd_rn(__fmul_rn(acc[u].y, cr), __fadd_rn(x1, y1));
+      if (cm) {
+        const float* lrow = lsc + r * sst;
+        x0 = x1 = y0 = y1 = 0.0f;
+        for (int k = 0; k < bk; k += 2) {
+          const float2 v0 = ld2(vc + k * dh), v1 = ld2(vc + (k + 1) * dh);
+          x0 = fmaf(lrow[k], v0.x, x0);
+          x1 = fmaf(lrow[k], v0.y, x1);
+          y0 = fmaf(lrow[k + 1], v1.x, y0);
+          y1 = fmaf(lrow[k + 1], v1.y, y1);
+        }
+        lnum[u].x = __fadd_rn(lnum[u].x, __fadd_rn(x0, y0));
+        lnum[u].y = __fadd_rn(lnum[u].y, __fadd_rn(x1, y1));
+      }
+    }
+  }
+
+  // ---- the partials of this split ----
+  float* po = part_o + (gw * n_split + sp) * 2 * nq;
+#pragma unroll
+  for (int u = 0; u < PAIRS; ++u) {
+    const int e = tid + NT * u;
+    if (e >= n_rep * half) break;
+    const int r = e / half, c2 = 2 * (e - r * half);
+    *reinterpret_cast<float2*>(po + r * dh + c2) = acc[u];
+    *reinterpret_cast<float2*>(po + nq + r * dh + c2) = lnum[u];
+  }
+  if (tid < n_rep) {
+    ps[tid] = m_r[tid];
+    ps[n_rep + tid] = l_r[tid];
+    ps[2 * n_rep + tid] = d_r[tid];
+  }
+}
+
+__host__ __device__ inline int combine_smem(int n_rep, int dh, int n_split) {
+  return (dh * dh + 2 * n_rep * dh + 2 * n_split * RMAX + 3 * RMAX) * 4 +
+         n_split * 4 + 16;
+}
+
+// One block per (slot x KV head, window row): the splits' softmax partials
+// rescaled with the corr guards, lnum and lden summed in ascending split
+// order, then the finalize of sla2_decode_kernel.  h_tot (64 KiB a row at
+// Dh 128) is copied into shared memory first, while the weights are
+// formed: the product phi(q) h_tot then runs on resident values, not on a
+// chain of HBM loads.
+template <typename QT>
+__global__ void __launch_bounds__(NT)
+sla2_decode_combine_kernel(const QT* __restrict__ q,
+                           const float* __restrict__ part_o,
+                           const float* __restrict__ part_s,
+                           const float* __restrict__ htot,
+                           const float* __restrict__ ztot,
+                           const float* __restrict__ alpha,
+                           float* __restrict__ o, int W, int n_rep, int dh,
+                           int n_split) {
+  extern __shared__ __align__(16) float cm[];
+  const int nq = n_rep * dh, stats = 3 * n_rep + 1;
+  float* hs = cm;                       // h_tot, [dh][dh]
+  float* qv = hs + dh * dh;             // q, [n_rep][dh]
+  float* qf = qv + nq;                  // phi(q)
+  float* wts = qf + nq;                 // split weights, [n_split][RMAX],
+                                        // then the lden partials
+  float* l_s = wts + 2 * n_split * RMAX;   // per row: max(sum l w, 1e-20),
+  float* ld_s = l_s + RMAX;             // lden and den_tot
+  float* dt_s = ld_s + RMAX;
+  int* used = reinterpret_cast<int*>(dt_s + RMAX);    // [n_split]: the
+  int* n_used = used + n_split;         // splits with entries, ascending
+  const int g = blockIdx.x, w = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t gw = (size_t)g * W + w;
+  const float* ps = part_s + gw * n_split * stats;
+
+  const float* h = htot + gw * (size_t)dh * dh;
+  for (int e = tid; e < dh * dh / 4; e += NT) cp_async16(hs + 4 * e, h + 4 * e);
+  cp_async_commit();
+  const QT* qrow = q + gw * nq;
+  for (int e = tid; e < nq; e += NT) qv[e] = ldf(qrow, e);
+  if (tid < 32) {                       // warp 0 lists them with a ballot
+    int c = 0;
+    for (int base = 0; base < n_split; base += 32) {
+      const int s = base + lane;
+      const bool ok = s < n_split && ps[(size_t)s * stats + 3 * n_rep] > 0.0f;
+      const unsigned m = __ballot_sync(0xffffffffu, ok);
+      if (ok) used[c + __popc(m & ((1u << lane) - 1u))] = s;
+      c += __popc(m);
+    }
+    if (lane == 0) *n_used = c;
+  }
+  __syncthreads();
+  for (int r = warp; r < n_rep; r += NWARP)
+    warp_softmax(qv + r * dh, qf + r * dh, dh, lane);
+  __syncthreads();
+  const int nu = *n_used;
+
+  // ---- per row: w_s = exp(m_s' - M') with the corr guards over the splits
+  // that hold entries, sum l_s w_s (lane partials, then a butterfly); lden
+  // in ascending split order; den_tot = phi(q) . z_tot ----
+  const float* z = ztot + gw * dh;
+  for (int r = warp; r < n_rep; r += NWARP) {
+    float m = NEG_INF;
+    for (int i = lane; i < nu; i += 32)
+      m = fmaxf(m, ps[(size_t)used[i] * stats + r]);
+    m = warp_max(m);
+    const float m_safe = m > HALF_NEG ? m : 0.0f;
+    float l = 0.0f;
+    for (int i = lane; i < nu; i += 32) {
+      const float* st = ps + (size_t)used[i] * stats;
+      const float ms = st[r];
+      const float wt = expf((ms > HALF_NEG ? ms : m_safe) - m_safe);
+      l = __fadd_rn(l, __fmul_rn(st[n_rep + r], wt));
+      wts[i * RMAX + r] = wt;
+    }
+    l = warp_sum(l);
+    float x = 0.0f;
+    for (int d = lane; d < DMAX; d += 32)
+      x = __fadd_rn(x, d < dh ? __fmul_rn(qf[r * dh + d], z[d]) : 0.0f);
+    x = warp_sum(x);
+    for (int i = lane; i < nu; i += 32)   // lden partials, summed below
+      wts[i * RMAX + r + RMAX * n_split] = ps[(size_t)used[i] * stats + 2 * n_rep + r];
+    __syncwarp();
+    if (lane == 0) {
+      float ld = 0.0f;
+      for (int i = 0; i < nu; ++i)
+        ld = __fadd_rn(ld, wts[i * RMAX + r + RMAX * n_split]);
+      l_s[r] = fmaxf(l, 1e-20f);
+      ld_s[r] = ld;
+      dt_s[r] = x;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- o: thread (column c, row group) takes rows rg, rg + ng, ...: acc
+  // and lnum summed over the splits (ascending), phi(q) h_tot from the
+  // resident copy, the linear complement and the alpha combine ----
+  constexpr int RPT = RMAX * DMAX / NT;           // rows a thread takes
+  const int ng = NT / dh, c = tid % dh, rg = tid / dh;
+  const float* po = part_o + gw * n_split * 2 * (size_t)nq;
+  float a[RPT], ln[RPT], num[RPT];
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) a[u] = ln[u] = num[u] = 0.0f;
+  // the partials are read four splits at a time (rows past n_rep read a
+  // valid row again and are not added), then added in ascending order
+  for (int i0 = 0; i0 < nu; i0 += 4) {
+    float va[4][RPT], vl[4][RPT];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* ps_o = po + (size_t)used[min(i0 + j, nu - 1)] * 2 * nq;
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const int r = min(rg + ng * u, n_rep - 1);
+        va[j][u] = ps_o[r * dh + c];
+        vl[j][u] = ps_o[nq + r * dh + c];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i0 + j >= nu) break;
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const int r = rg + ng * u;
+        if (r >= n_rep) break;
+        a[u] = __fadd_rn(a[u], __fmul_rn(va[j][u], wts[(i0 + j) * RMAX + r]));
+        ln[u] = __fadd_rn(ln[u], vl[j][u]);
+      }
+    }
+  }
+  for (int d = 0; d < dh; ++d) {
+    const float hv = hs[d * dh + c];
+#pragma unroll
+    for (int u = 0; u < RPT; ++u) {
+      const int r = rg + ng * u;
+      if (r >= n_rep) break;
+      num[u] = fmaf(qf[r * dh + d], hv, num[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int r = rg + ng * u;
+    if (r >= n_rep) break;
+    const float nm = __fadd_rn(num[u], -ln[u]);
+    const float den_tot = dt_s[r];
+    float den = __fadd_rn(den_tot, -ld_s[r]);
+    den = den > __fadd_rn(__fmul_rn(1e-4f, den_tot), 1e-12f) ? den : 0.0f;
+    const float o_l = den > 0.0f ? nm / fmaxf(den, 1e-12f) : 0.0f;
+    const float al = 1.0f / (1.0f + expf(-alpha[(size_t)g * n_rep + r]));
+    const float a_eff = den > 0.0f ? al : 1.0f;
+    const float o_s = a[u] / l_s[r];
+    o[gw * nq + r * dh + c] = __fadd_rn(
+        __fmul_rn(a_eff, o_s), __fmul_rn(__fadd_rn(1.0f, -a_eff), o_l));
   }
 }
 
@@ -959,14 +1486,14 @@ dense_combine_kernel(const int* __restrict__ tnew,
 struct DecodeArgs {
   const void *q, *kp, *vp, *ks, *vs, *phys, *jlog, *valid, *comp, *tnew,
       *h, *z, *alpha;
-  void* o;
-  int b, W, hkv, n_rep, dh, bk, k_sel, quant, n_pages;
+  void *o, *part_o, *part_s;
+  int b, W, hkv, n_rep, dh, bk, k_sel, quant, n_pages, n_split, eps;
   float sm_scale;
   cudaStream_t stream;
 };
 
 template <typename QT, typename PT>
-int run_decode(const DecodeArgs& a) {
+int run_decode_serial(const DecodeArgs& a) {
   const size_t smem = decode_layout(a.n_rep, a.bk, a.dh).total;
   auto kern = sla2_decode_kernel<QT, PT>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -983,6 +1510,43 @@ int run_decode(const DecodeArgs& a) {
       static_cast<const float*>(a.alpha), static_cast<float*>(a.o), a.W,
       a.hkv, a.n_rep, a.dh, a.bk, a.k_sel, a.quant, a.n_pages, a.sm_scale);
   return (int)cudaGetLastError();
+}
+
+template <typename QT, typename PT>
+int run_decode_split(const DecodeArgs& a) {
+  const int smem = dsplit_layout(a.n_rep, a.bk, a.dh, sizeof(PT)).total;
+  auto kern = sla2_decode_split_kernel<QT, PT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(a.b * a.hkv, a.W, a.n_split), NT, smem, a.stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const PT*>(a.kp),
+      static_cast<const PT*>(a.vp), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.phys),
+      static_cast<const int*>(a.jlog), static_cast<const int*>(a.valid),
+      static_cast<const int*>(a.comp), static_cast<const int*>(a.tnew),
+      static_cast<float*>(a.part_o), static_cast<float*>(a.part_s), a.W,
+      a.hkv, a.n_rep, a.dh, a.bk, a.k_sel, a.n_pages, a.eps, a.n_split,
+      a.sm_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int csmem = combine_smem(a.n_rep, a.dh, a.n_split);
+  auto comb = sla2_decode_combine_kernel<QT>;
+  e = cudaFuncSetAttribute(comb, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           csmem);
+  if (e != cudaSuccess) return (int)e;
+  comb<<<dim3(a.b * a.hkv, a.W), NT, csmem, a.stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const float*>(a.part_o),
+      static_cast<const float*>(a.part_s), static_cast<const float*>(a.h),
+      static_cast<const float*>(a.z), static_cast<const float*>(a.alpha),
+      static_cast<float*>(a.o), a.W, a.n_rep, a.dh, a.n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename QT, typename PT>
+int run_decode(const DecodeArgs& a) {
+  return a.quant == Q_NONE ? run_decode_split<QT, PT>(a)
+                           : run_decode_serial<QT, PT>(a);
 }
 
 struct DenseArgs {
@@ -1074,20 +1638,33 @@ int dense_pool(int pool, const DenseArgs& a) {
 
 // C entries, bound with ctypes.  Each returns cudaGetLastError() after the
 // launch (0 on success); the caller raises on anything else.
+//
+// sla2_decode: quant_bits none runs the split kernel and the combine:
+// part_o (rows x n_split x 2 x n_rep x Dh) and part_s (rows x n_split x
+// (3 n_rep + 1)) f32 scratch, rows = B x Hkv x W; eps routed entries per
+// split (at most 64) and n_split = ceil(K_sel / eps) splits.  QAT tiles run
+// sla2_decode_kernel (the scratch may be null).
 extern "C" int sla2_decode(const void* q, const void* kp, const void* vp,
                            const void* ks, const void* vs, const void* phys,
                            const void* jlog, const void* valid,
                            const void* comp, const void* tnew, const void* h,
-                           const void* z, const void* alpha, void* o, int b,
-                           int W, int hkv, int n_rep, int dh, int bk,
-                           int k_sel, int quant, int q_bf16, int pool,
-                           int n_pages, float sm_scale, void* stream) {
+                           const void* z, const void* alpha, void* o,
+                           void* part_o, void* part_s, int b, int W, int hkv,
+                           int n_rep, int dh, int bk, int k_sel, int quant,
+                           int q_bf16, int pool, int n_pages, int n_split,
+                           int eps, float sm_scale, void* stream) {
   if (!shapes_ok(dh, bk, n_rep) || quant < Q_NONE || quant > Q_FP8 ||
       (pool >= P_I8 && (ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const DecodeArgs a{q,  kp, vp,    ks,    vs, phys, jlog,  valid, comp,
-                     tnew, h, z, alpha, o,  b,    W,     hkv,   n_rep,
-                     dh, bk, k_sel, quant, n_pages, sm_scale,
+  if (quant == Q_NONE &&
+      (part_o == nullptr || part_s == nullptr || eps < 1 || eps > EPS_MAX ||
+       n_split < 1 || (long long)n_split * eps < k_sel ||
+       (long long)(n_split - 1) * eps >= k_sel))
+    return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{q,      kp,     vp,   ks,    vs,     phys,    jlog,
+                     valid,  comp,   tnew, h,     z,      alpha,   o,
+                     part_o, part_s, b,    W,     hkv,    n_rep,   dh,
+                     bk,     k_sel,  quant, n_pages, n_split, eps, sm_scale,
                      static_cast<cudaStream_t>(stream)};
   return q_bf16 ? decode_pool<__nv_bfloat16>(pool, a) : decode_pool<float>(pool, a);
 }
@@ -1118,6 +1695,12 @@ extern "C" int dense_decode(const void* q, const void* kp, const void* vp,
                     prefix_len, quant, n_pages, n_split, wg,       sm_scale,
                     static_cast<cudaStream_t>(stream)};
   return q_bf16 ? dense_pool<__nv_bfloat16>(pool, a) : dense_pool<float>(pool, a);
+}
+
+// Dynamic shared memory per block of sla2_decode_split_kernel for n_rep
+// query heads and a pool of element size es.
+extern "C" int sla2_decode_split_smem(int n_rep, int bk, int dh, int es) {
+  return dsplit_layout(n_rep, bk, dh, es).total;
 }
 
 // Dynamic shared memory per block of dense_split_kernel for `rows` rows

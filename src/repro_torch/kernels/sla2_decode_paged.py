@@ -15,7 +15,12 @@ pools (``kv_quant``, codes with per-row f32 scales).  On a CUDA tensor it
 launches ``sla2_decode`` in ``csrc/sla2_decode_paged.cu``; on a CPU tensor
 it runs ``sla2_decode_verify_plain``, the PyTorch transcription of the
 same loop.  ``sla2_decode_verify.launches`` counts kernel launches of
-both entries.
+both entries.  Without QAT tiles the kernel cuts each row's routed
+entries into splits across blocks (``decode_split_shape``: entries per
+split from the grid's size) and a combine adds the partials: f32 scratch
+from ``torch.empty``, (acc, lnum) and (m, l, lden, count) per row, split
+and query head.  ``sla2_decode_split_plain`` is the plain version of that
+arithmetic; with one split it is the unsplit loop, bit for bit.
 
 ``dense_decode_verify`` (and ``dense_decode_fused``, its W = 1 case) is
 the decode step of stacks without a router (``mechanism="full"``): every
@@ -105,35 +110,30 @@ def _tree_sum(p):
 # SLA2 paged decode / verify
 # ---------------------------------------------------------------------------
 
-def sla2_decode_verify_plain(q, k_pages, v_pages, phys, jlog, valid,
-                             complete, t_new, h_tot, z_tot, alpha, *,
-                             block_k: int, quant_bits: str = "none",
-                             kv_quant: str = "none", k_scale=None,
-                             v_scale=None):
-    """Plain PyTorch version of the decode kernel, vectorised over
-    (B, Hkv, W): the same ascending loop over the K_sel routed entries.
-    Shapes as ``sla2_decode_verify``; returns o (B, Hkv, W, n_rep, Dh)
-    f32."""
-    b, hkv, wdw, n_rep, dh = q.shape
-    k_sel = phys.shape[-1]
-    dev = q.device
+def _decode_partials(qf32, qf, q_code, k_pages, v_pages, phys, jlog, valid,
+                     complete, t, jjs, *, block_k, quant_bits, k_scale,
+                     v_scale):
+    """The kernel's loop over the routed entries ``jjs`` (ascending) of
+    every row, from m = -1e30, l = 0, acc = lnum = lden = 0.  Returns
+    (acc, m, l, lnum, lden, has): the online-softmax state, the linear
+    correction of the complete entries, and whether a row had a valid
+    entry."""
+    b, hkv, wdw, n_rep, dh = qf32.shape
+    dev = qf32.device
     sm_scale = 1.0 / (dh ** 0.5)
-    qf32 = q.to(torch.float32)
-    qf = phi(qf32)
-    if quant_bits != "none":
-        q_c, q_s = quantize_tile(qf32, quant_bits)
     h_ix = torch.arange(hkv, device=dev)[None, :, None]
-    t = t_new.to(torch.int64)[:, None, :, None]              # (B, 1, W, 1)
     shape = (b, hkv, wdw, n_rep)
     acc = torch.zeros(*shape, dh, device=dev)
     lnum = torch.zeros(*shape, dh, device=dev)
     m_i = torch.full(shape, NEG_INF, device=dev)
     l_i = torch.zeros(shape, device=dev)
     lden = torch.zeros(shape, device=dev)
+    has = torch.zeros(b, hkv, wdw, 1, dtype=torch.bool, device=dev)
     offs = torch.arange(block_k, device=dev)
-    for jj in range(k_sel):
+    for jj in jjs:
         ph = phys[..., jj].long()                             # (B, Hkv, W)
         ok = (valid[..., jj] == 1)[..., None]
+        has = has | ok
         k = _dequant(k_pages[ph, h_ix],
                      None if k_scale is None else k_scale[ph, h_ix])
         v = _dequant(v_pages[ph, h_ix],
@@ -142,7 +142,7 @@ def sla2_decode_verify_plain(q, k_pages, v_pages, phys, jlog, valid,
             s = torch.matmul(qf32, k.transpose(-1, -2)) * sm_scale
         else:
             k_c, k_s = quantize_tile(k, quant_bits)
-            s = qdot(q_c, q_s, k_c, k_s, transpose_b=True) * sm_scale
+            s = qdot(*q_code, k_c, k_s, transpose_b=True) * sm_scale
         cols = jlog[..., jj].long()[..., None] * block_k + offs
         s = torch.where((cols < t)[..., None, :], s, NEG_INF)
         m_new = torch.maximum(m_i, torch.amax(s, dim=-1))
@@ -169,6 +169,51 @@ def sla2_decode_verify_plain(q, k_pages, v_pages, phys, jlog, valid,
         ls = torch.matmul(qf, phi(k).transpose(-1, -2))       # (.., n_rep, bk)
         lnum = torch.where(sub[..., None], lnum + torch.matmul(ls, v), lnum)
         lden = torch.where(sub, lden + _tree_sum(ls), lden)
+    return acc, m_i, l_i, lnum, lden, has
+
+
+def sla2_decode_split_plain(q, k_pages, v_pages, phys, jlog, valid,
+                            complete, t_new, h_tot, z_tot, alpha, *,
+                            block_k: int, entries_per_split: int,
+                            quant_bits: str = "none",
+                            kv_quant: str = "none", k_scale=None,
+                            v_scale=None):
+    """Plain PyTorch version of the split decode kernel: each row's K_sel
+    routed entries cut into splits of ``entries_per_split`` consecutive
+    entries; each split runs the kernel's loop into partials (acc, m, l,
+    lnum, lden); the combine skips splits without a valid entry, rescales
+    the softmax partials (M = max m_s, w_s = exp(m_s' - M') with the corr
+    guards, m > -5e29), sums acc_s w_s, l_s w_s, lnum_s and lden_s in
+    ascending split order, and the finalize takes o_s = acc / max(l,
+    1e-20), the linear complement from h_tot / z_tot minus (lnum, lden)
+    and the sigmoid-alpha combine.  Shapes as ``sla2_decode_verify``;
+    returns o (B, Hkv, W, n_rep, Dh) f32."""
+    dh = q.shape[-1]
+    k_sel = phys.shape[-1]
+    eps = max(1, int(entries_per_split))
+    qf32 = q.to(torch.float32)
+    qf = phi(qf32)
+    q_code = quantize_tile(qf32, quant_bits) if quant_bits != "none" else None
+    t = t_new.to(torch.int64)[:, None, :, None]              # (B, 1, W, 1)
+    parts = [_decode_partials(qf32, qf, q_code, k_pages, v_pages, phys, jlog,
+                              valid, complete, t,
+                              range(j0, min(j0 + eps, k_sel)),
+                              block_k=block_k, quant_bits=quant_bits,
+                              k_scale=k_scale, v_scale=v_scale)
+             for j0 in range(0, k_sel, eps)]
+    m_all = torch.stack([torch.where(has, m, NEG_INF)
+                         for _, m, _, _, _, has in parts]).amax(dim=0)
+    m_safe = torch.where(m_all > _HALF_NEG, m_all, 0.0)
+    acc = torch.zeros_like(parts[0][0])
+    lnum = torch.zeros_like(parts[0][3])
+    l_i = torch.zeros_like(parts[0][2])
+    lden = torch.zeros_like(parts[0][4])
+    for acc_s, m_s, l_s, lnum_s, lden_s, has in parts:
+        w = torch.exp(torch.where(m_s > _HALF_NEG, m_s, m_safe) - m_safe)
+        acc = torch.where(has[..., None], acc + acc_s * w[..., None], acc)
+        l_i = torch.where(has, l_i + l_s * w, l_i)
+        lnum = torch.where(has[..., None], lnum + lnum_s, lnum)
+        lden = torch.where(has, lden + lden_s, lden)
     l_safe = torch.clamp(l_i, min=1e-20)
     o_s = acc / l_safe[..., None]
     den_tot = (qf * z_tot[..., None, :]).sum(dim=-1)
@@ -180,6 +225,23 @@ def sla2_decode_verify_plain(q, k_pages, v_pages, phys, jlog, valid,
     a = torch.sigmoid(alpha.to(torch.float32))[:, :, None, :, None]
     a_eff = torch.where(den[..., None] > 0, a, 1.0)
     return a_eff * o_s + (1.0 - a_eff) * o_l
+
+
+def sla2_decode_verify_plain(q, k_pages, v_pages, phys, jlog, valid,
+                             complete, t_new, h_tot, z_tot, alpha, *,
+                             block_k: int, quant_bits: str = "none",
+                             kv_quant: str = "none", k_scale=None,
+                             v_scale=None):
+    """Plain PyTorch version of the decode kernel, vectorised over
+    (B, Hkv, W): the same ascending loop over the K_sel routed entries.
+    It is ``sla2_decode_split_plain`` with one split, whose combine is
+    exact (w = exp(0) = 1).  Shapes as ``sla2_decode_verify``; returns o
+    (B, Hkv, W, n_rep, Dh) f32."""
+    return sla2_decode_split_plain(
+        q, k_pages, v_pages, phys, jlog, valid, complete, t_new, h_tot,
+        z_tot, alpha, block_k=block_k, entries_per_split=phys.shape[-1],
+        quant_bits=quant_bits, kv_quant=kv_quant, k_scale=k_scale,
+        v_scale=v_scale)
 
 
 def sla2_decode_fused_plain(q, k_pages, v_pages, phys, jlog, valid,
@@ -290,7 +352,8 @@ def _ptr(t):
 
 
 def _check_aligned(name, *tensors):
-    """The kernels copy pages with 16-byte cp.async."""
+    """The kernels copy pages (and sla2_decode's combine h_tot) with
+    16-byte cp.async."""
     for t in tensors:
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} kernel needs 16-byte aligned pools")
@@ -300,11 +363,50 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# The split kernels' grid size and the split dense kernel's limits
+# (csrc/sla2_decode_paged.cu).
+SPLIT_ROWS, PPS_MIN, PPS_MAX = 64, 2, 64
+SPLIT_PER_SM = 8                # blocks per SM the grid aims at
+SPLIT_MAX = 128                 # splits the grid size asks for, at most
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# The split SLA2 decode's limits.  At one entry a split the combine reads
+# a partial per routed entry; two a split halve that for fewer blocks and
+# measured fastest at qwen3-14b's 4 slots, W 1 and 4 (device time of both
+# kernels 0.0412 ms against 0.0456 at one entry, W 1; 0.1175 against
+# 0.1229, W 4; tools/fwd_decode_variants.py on an H100).
+EPS_MIN = 2                     # routed entries of a split, at least
+EPS_MAX = 64                    # routed entries of a split, at most
+
+
+def decode_split_shape(b, hkv, k_sel, n_sm):
+    """(entries_per_split, n_split) of the split SLA2 decode kernel on a
+    card of ``n_sm`` SMs: enough splits of each (slot x KV head, window
+    row)'s K_sel routed entries for about SPLIT_PER_SM blocks per SM at one
+    window row (at most SPLIT_MAX and K_sel), a split holding at least
+    EPS_MIN entries (or K_sel, if fewer), at most EPS_MAX, and none
+    empty.  The window width does not enter: a
+    row's arithmetic depends on its splits, and a verify pass must compute
+    each row as the decode step does, bit for bit (greedy speculative
+    tokens are held to the plain decode's)."""
+    want = min(-(-SPLIT_PER_SM * n_sm // (b * hkv)), SPLIT_MAX, k_sel)
+    eps = min(EPS_MAX, max(EPS_MIN, -(-k_sel // max(1, want))),
+              max(1, k_sel))
+    return eps, -(-k_sel // eps)
+
+
 def _launch_decode(q, k_pages, v_pages, phys, jlog, valid, complete, t_new,
                    h_tot, z_tot, alpha, *, block_k, quant_bits, kv_quant,
                    k_scale, v_scale):
     from repro_torch.kernels.build import load_library
     b, hkv, wdw, n_rep, dh = q.shape
+    k_sel = phys.shape[-1]
     _kernel_shape_check("sla2_decode", dh, block_k, n_rep)
     args = [t.contiguous() for t in (q, phys, jlog, valid, complete, t_new,
                                      h_tot, z_tot, alpha)]
@@ -314,9 +416,19 @@ def _launch_decode(q, k_pages, v_pages, phys, jlog, valid, complete, t_new,
     q, phys, jlog, valid, complete, t_new, h_tot, z_tot, alpha = args
     o = torch.empty(b, hkv, wdw, n_rep, dh, device=q.device,
                     dtype=torch.float32)
+    eps, n_split = decode_split_shape(b, hkv, k_sel, sm_count(q.device))
+    part_o = part_s = None
+    if quant_bits == "none":                   # the split kernel's partials
+        _check_aligned("sla2_decode", k_pages, v_pages, k_scale, v_scale,
+                       h_tot)
+        rows = b * hkv * wdw * n_split
+        part_o = torch.empty(rows * 2 * n_rep * dh, device=q.device,
+                             dtype=torch.float32)
+        part_s = torch.empty(rows * (3 * n_rep + 1), device=q.device,
+                             dtype=torch.float32)
     fn = load_library("sla2_decode_paged").sla2_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 13
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
@@ -324,10 +436,11 @@ def _launch_decode(q, k_pages, v_pages, phys, jlog, valid, complete, t_new,
                  _ptr(k_scale), _ptr(v_scale), phys.data_ptr(),
                  jlog.data_ptr(), valid.data_ptr(), complete.data_ptr(),
                  t_new.data_ptr(), h_tot.data_ptr(), z_tot.data_ptr(),
-                 alpha.data_ptr(), o.data_ptr(), b, wdw, hkv, n_rep, dh,
-                 block_k, phys.shape[-1], QUANT_CODES[quant_bits],
-                 int(q.dtype == torch.bfloat16), _POOL_CODES[k_pages.dtype],
-                 k_pages.shape[0], 1.0 / (dh ** 0.5), _stream(q.device))
+                 alpha.data_ptr(), o.data_ptr(), _ptr(part_o), _ptr(part_s),
+                 b, wdw, hkv, n_rep, dh, block_k, k_sel,
+                 QUANT_CODES[quant_bits], int(q.dtype == torch.bfloat16),
+                 _POOL_CODES[k_pages.dtype], k_pages.shape[0], n_split, eps,
+                 1.0 / (dh ** 0.5), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"sla2_decode kernel launch failed: CUDA error "
                            f"{err}")
@@ -480,18 +593,6 @@ def dense_decode_fused(q, k_pages, v_pages, page_table, t_new, **kw):
     Dh) f32."""
     return dense_decode_verify(q[:, :, None], k_pages, v_pages, page_table,
                                t_new[:, None].contiguous(), **kw)[:, :, 0]
-
-
-# The split kernel's limits (csrc/sla2_decode_paged.cu) and its grid size.
-SPLIT_ROWS, PPS_MIN, PPS_MAX = 64, 2, 64
-SPLIT_PER_SM = 8                # blocks per SM the grid aims at
-SPLIT_MAX = 128                 # splits the grid size asks for, at most
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device) -> int:
-    """Streaming multiprocessors of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dense_split_shape(b, hkv, wdw, n_rep, max_p, n_sm):

@@ -1,7 +1,7 @@
 """Block-sparse flash forward of the SLA2 sparse branch (paper Algorithm 2).
 
 ``sparse_flash_fwd`` is the wrapper.  On a CUDA tensor it launches the
-hand-written ``sm_90a`` kernel in ``csrc/sla2_fwd.cu`` (built on first use
+hand-written ``sm_90a`` kernels in ``csrc/sla2_fwd.cu`` (built on first use
 by ``kernels/build.py``); on a CPU tensor it runs ``sparse_flash_fwd_plain``,
 the PyTorch transcription of the same online-softmax loop.  There is no
 fallback from one to the other.
@@ -13,6 +13,15 @@ scales, exact int32 product; fp8: per-tile e4m3); NEG_INF masks for
 causal / prefix-LM / ragged ``kv_len``; the ``m_safe``/``corr`` online
 softmax; P quantised at a fixed 1/127 (int8) or per tile (fp8); and
 ``acc = acc * corr + o_tmp``.
+
+The int8 plan on the card is two launches per call: a pre-pass
+quantises every K and V tile once into scratch the wrapper allocates
+(``torch.empty``: the K codes (BH, T_n, bk, d), the V^T codes (BH, T_n, d,
+vt_keys(bk)) with the keys of each 32 permuted as the tensor cores read
+them, and the two f32 scales per tile, 2 x BH x N x d bytes and a little
+at bk 64: 201 MB at BH 24), then the main kernel streams each query
+block's routed code tiles through a ``cp.async`` ring onto ``mma.sync``.
+``quantize_kv_tiles_plain`` is the pre-pass in PyTorch, the same bits.
 """
 from __future__ import annotations
 
@@ -62,6 +71,39 @@ def _row_sum(p):
             if n or e:
                 part = part + pg[..., n, :, e]
     return (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+
+
+def vt_keys(block_k: int) -> int:
+    """Keys of a V^T code row: block_k rounded up to 32 (a P.V k-step)."""
+    return -(-block_k // 32) * 32
+
+
+def vperm(k: int) -> int:
+    """Position of key k (< 32) in the permuted V^T code row: key 8n + 2t
+    + e sits at 16 (n // 2) + 4 t + 2 (n % 2) + e, where the S accumulator
+    of the tensor cores leaves it in the P operand."""
+    n, r = k >> 3, k & 7
+    return 16 * (n >> 1) + 4 * (r >> 1) + 2 * (n & 1) + (r & 1)
+
+
+def quantize_kv_tiles_plain(k, v, block_k: int):
+    """Plain version of the int8 pre-pass: every (bh, kv block) tile of k
+    and v quantised once, the whole tile (padding keys included).  k, v
+    (BH, N, d).  Returns K codes (BH, T_n, bk, d) int8, V^T codes (BH, T_n,
+    d, vt_keys(bk)) int8 with each 32 keys permuted by ``vperm`` (padding
+    keys 0), and the scales k_s, v_s (BH, T_n) f32."""
+    bh, n, d = k.shape
+    t_n = n // block_k
+    kc, ks = quantize_tile(k.to(torch.float32).reshape(bh, t_n, block_k, d),
+                           "int8")
+    vc, vs = quantize_tile(v.to(torch.float32).reshape(bh, t_n, block_k, d),
+                           "int8")
+    bkp = vt_keys(block_k)
+    pos = torch.tensor([32 * (kk // 32) + vperm(kk % 32)
+                        for kk in range(block_k)], device=k.device)
+    vt = torch.zeros(bh, t_n, d, bkp, dtype=torch.int8, device=k.device)
+    vt[..., pos] = vc.transpose(-1, -2)
+    return kc, vt, ks[..., 0, 0], vs[..., 0, 0]
 
 
 def sparse_flash_fwd_plain(q, k, v, idx, valid, *, block_q: int,
@@ -159,6 +201,34 @@ def sparse_flash_fwd(q, k, v, idx, valid, *, block_q: int, block_k: int,
 sparse_flash_fwd.launches = 0
 
 
+def quantize_kv_tiles(k, v, block_k: int):
+    """The int8 pre-pass on the card (``sla2_fwd_quant_kv``): the codes and
+    scales of ``quantize_kv_tiles_plain``, in scratch from ``torch.empty``.
+    Part of a ``sparse_flash_fwd`` launch; not counted on its own."""
+    from repro_torch.kernels.build import load_library
+    bh, n_kv, d = k.shape
+    t_n, bkp = n_kv // block_k, vt_keys(block_k)
+    codes = torch.empty(bh * t_n * (block_k + bkp) * d, device=k.device,
+                        dtype=torch.int8)
+    kc = codes[:bh * n_kv * d].view(bh, t_n, block_k, d)
+    vt = codes[bh * n_kv * d:].view(bh, t_n, d, bkp)
+    scales = torch.empty(2, bh, t_n, device=k.device, dtype=torch.float32)
+    fn = load_library("sla2_fwd").sla2_fwd_quantize_kv
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(k.device):
+        err = fn(k.data_ptr(), v.data_ptr(), kc.data_ptr(), vt.data_ptr(),
+                 scales[0].data_ptr(), scales[1].data_ptr(), bh, n_kv, d,
+                 block_k, int(k.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(k.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sla2_fwd pre-pass launch failed: CUDA error "
+                           f"{err}")
+    return kc, vt, scales[0], scales[1]
+
+
 def _launch(q, k, v, idx, valid, *, block_q, block_k, causal, prefix_len,
             quant_bits, kv_len):
     from repro_torch.kernels.build import load_library
@@ -176,21 +246,24 @@ def _launch(q, k, v, idx, valid, *, block_q, block_k, causal, prefix_len,
             raise ValueError("sla2_fwd kernel needs contiguous inputs")
     if kv_len and kv_len >= n_kv:
         kv_len = 0
+    codes = (quantize_kv_tiles(k, v, block_k) if quant_bits == "int8"
+             else (None,) * 4)
     o = torch.empty_like(q)
     lse = torch.empty(bh, n_q, device=q.device, dtype=torch.float32)
-    lib = load_library("sla2_fwd")
-    fn = lib.sla2_sparse_flash_fwd
+    fn = load_library("sla2_fwd").sla2_sparse_flash_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-                 valid.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 bh, n_q, n_kv, d, block_q, block_k, k_sel, int(causal),
-                 prefix_len, kv_len, QUANT_CODES[quant_bits],
-                 int(q.dtype == torch.bfloat16), 1.0 / (d ** 0.5), stream)
+                 valid.data_ptr(), *(0 if t is None else t.data_ptr()
+                                     for t in codes),
+                 o.data_ptr(), lse.data_ptr(), bh, n_q, n_kv, d, block_q,
+                 block_k, k_sel, int(causal), prefix_len, kv_len,
+                 QUANT_CODES[quant_bits], int(q.dtype == torch.bfloat16),
+                 1.0 / (d ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"sla2_fwd kernel launch failed: CUDA error {err}")
     sparse_flash_fwd.launches += 1

@@ -24,7 +24,10 @@ from repro_torch.core.quant import smooth_k
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sla2_decode_paged as KP
 from repro_torch.kernels.sla2_bwd import sparse_flash_bwd, sparse_flash_bwd_plain
-from repro_torch.kernels.sla2_fwd import sparse_flash_fwd, sparse_flash_fwd_plain
+from repro_torch.kernels.sla2_fwd import (quantize_kv_tiles,
+                                          quantize_kv_tiles_plain,
+                                          sparse_flash_fwd,
+                                          sparse_flash_fwd_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -134,6 +137,34 @@ def test_fwd_kernel_matches_plain(card, quant):
     assert float((lse - pl).abs().max()) < 1e-3
 
 
+@pytest.mark.parametrize("shape,hot", [
+    ((2, 4096, 128, 128, 64), None),          # the main tiling
+    ((2, 4096, 128, 128, 64), 5),             # ... with a hot kv block
+    ((3, 1024, 64, 64, 32), 2),               # run-time sizes
+    ((2, 768, 96, 32, 48), 1)])               # bk 48: padded V^T keys
+def test_fwd_int8_prepass_and_ring_match_plain(card, shape, hot):
+    """The int8 forward as the pre-pass (codes and scales bit-equal to
+    quantize_kv_tiles_plain) and the main kernel over a ring of routed
+    code tiles, with a kv block that every query block routes."""
+    bh, n, d, bq, bk = shape
+    q, k, v, _, idx, valid = _case(card, shape, torch.bfloat16, False, 0,
+                                   0.1)
+    if hot is not None:
+        idx, valid = _force_hot(idx, valid, hot)
+    k = smooth_k(k).contiguous()
+    got = quantize_kv_tiles(k, v, bk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, quantize_kv_tiles_plain(k, v, bk)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    kw = dict(block_q=bq, block_k=bk, causal=False, quant_bits="int8")
+    before = sparse_flash_fwd.launches
+    o, lse = sparse_flash_fwd(q, k, v, idx, valid, **kw)
+    torch.cuda.synchronize()
+    assert sparse_flash_fwd.launches == before + 1
+    po, pl = sparse_flash_fwd_plain(q, k, v, idx, valid, **kw)
+    assert _rel(o, po) < 1e-3 and float((lse - pl).abs().max()) < 1e-3
+
+
 BOUND = {"none": 2e-5, "int8": 1e-3, "fp8": 1e-2}
 
 
@@ -198,6 +229,85 @@ def test_decode_kernel_matches_plain(card, quant, kv_quant, n_rep, w, dtype):
     assert KP.sla2_decode_verify.launches == before + 1
     want = KP.sla2_decode_verify_plain(*args, **kw)
     assert torch.isfinite(o).all() and _rel(o, want) < BOUND[quant]
+
+
+@pytest.mark.parametrize("kv_quant,n_rep,w,eps,dtype,comp", [
+    ("none", 5, 1, 1, "bfloat16", "some"),
+    ("none", 5, 4, 3, "bfloat16", "some"),
+    ("none", 1, 1, 26, "float32", "all"),      # one split: the unsplit loop
+    ("none", 5, 4, 7, "float32", "none"),
+    ("int8", 5, 1, 2, "bfloat16", "some"),
+    ("fp8", 2, 4, 5, "float32", "all"),
+    ("none", 16, 2, 4, "bfloat16", "some")])
+def test_split_decode_matches_plain(card, monkeypatch, kv_quant, n_rep, w,
+                                    eps, dtype, comp):
+    """The split SLA2 decode (f32 tiles) at the splits each case sets in
+    place of the wrapper's choice, against the unsplit plain version and
+    the split one: a row
+    with no valid entry, a split whose entries are all invalid (entries
+    0..eps-1 of row (1, 1)), complete flags on some, none or all
+    entries."""
+    g, dt = card, getattr(torch, dtype)
+    b, hkv, dh, bk, k_sel, n_pages = 3, 4, 128, 64, 26, 300
+    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, dt)
+    ints = lambda lo, hi, shape: torch.randint(
+        lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+    rnd = lambda *shape: torch.rand(*shape, generator=g, device="cuda")
+    q = torch.randn(b, hkv, w, n_rep, dh, generator=g, device="cuda").to(dt)
+    phys = ints(1, n_pages, (b, hkv, w, k_sel))
+    jlog = ints(0, 100, (b, hkv, w, k_sel))
+    valid = (rnd(b, hkv, w, k_sel) > 0.2).to(torch.int32)
+    valid[0, 0] = 0                                   # a row with none
+    valid[1, 1, :, :eps] = 0                          # an empty split
+    flags = {"some": (rnd(b, hkv, w, k_sel) > 0.3).to(torch.int32),
+             "none": torch.zeros_like(valid), "all": torch.ones_like(valid)}
+    complete = flags[comp] * valid
+    t_new = ints(50 * bk, 100 * bk, (b, w))
+    h = rnd(b, hkv, w, dh, dh) * 50
+    z = rnd(b, hkv, w, dh) * 1000 + 200
+    alpha = torch.randn(b, hkv, n_rep, generator=g, device="cuda")
+    args = (q, kp, vp, phys, jlog, valid, complete, t_new, h, z, alpha)
+    kw = dict(block_k=bk, kv_quant=kv_quant, k_scale=ks, v_scale=vs)
+    monkeypatch.setattr(KP, "decode_split_shape",
+                        lambda *_: (eps, -(-k_sel // eps)))
+    before = KP.sla2_decode_verify.launches
+    o = KP.sla2_decode_verify(*args, **kw)
+    torch.cuda.synchronize()
+    assert KP.sla2_decode_verify.launches == before + 1
+    assert torch.isfinite(o).all()
+    assert _rel(o, KP.sla2_decode_verify_plain(*args, **kw)) < 2e-5
+    assert _rel(o, KP.sla2_decode_split_plain(
+        *args, entries_per_split=eps, **kw)) < 2e-5
+
+
+def test_split_decode_rows_do_not_depend_on_the_window(card):
+    """A verify window computes each row bit for bit as a single-row decode
+    of the same inputs: the split size does not depend on W."""
+    g = card
+    b, hkv, n_rep, dh, bk, k_sel, n_pages, w = 4, 8, 5, 128, 64, 26, 400, 4
+    kp, vp, _, _ = _pool(g, n_pages, hkv, bk, dh, "none", torch.bfloat16)
+    ints = lambda lo, hi, shape: torch.randint(
+        lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+    rnd = lambda *shape: torch.rand(*shape, generator=g, device="cuda")
+    q = torch.randn(b, hkv, w, n_rep, dh, generator=g,
+                    device="cuda").bfloat16()
+    phys = ints(1, n_pages, (b, hkv, w, k_sel))
+    jlog = ints(0, 100, (b, hkv, w, k_sel))
+    valid = (rnd(b, hkv, w, k_sel) > 0.1).to(torch.int32)
+    complete = (rnd(b, hkv, w, k_sel) > 0.2).to(torch.int32) * valid
+    t_new = ints(90 * bk, 100 * bk, (b, w))
+    h = rnd(b, hkv, w, dh, dh) * 50
+    z = rnd(b, hkv, w, dh) * 1000 + 200
+    alpha = torch.randn(b, hkv, n_rep, generator=g, device="cuda")
+    o = KP.sla2_decode_verify(q, kp, vp, phys, jlog, valid, complete, t_new,
+                              h, z, alpha, block_k=bk)
+    for r in range(w):
+        o1 = KP.sla2_decode_fused(
+            q[:, :, r], kp, vp, phys[:, :, r], jlog[:, :, r],
+            valid[:, :, r], complete[:, :, r], t_new[:, r].contiguous(),
+            h[:, :, r], z[:, :, r], alpha, block_k=bk)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o[:, :, r])
 
 
 @pytest.mark.parametrize("c,offset,window,prefix_len,kv_quant,dh,dtype", [
