@@ -111,7 +111,55 @@ run outside a checkout of the repository; each prints its wall time):
              for full; the gather engine fed the fused drafts): verify
              logits within 1e-3 relative norm error, greedy tokens equal
              to each other and to speculative="off"; a too-small pool with
-             and without swap gives the same tokens.
+             and without swap gives the same tokens;
+17. lm-static the lm-serve weights (40 layers), sla2_impl="kernel", int8
+             QAT, on the static cache: StaticWaveEngine(max_slots=4) serves
+             the lm-serve prompts as one wave left-padded to 8192 (32 new
+             tokens each; sparse_flash_fwd launches = 40, the wave
+             prefill's); layer 0's causal prefill (B 1, N 8192, K/V
+             repeated to 40 heads) through sparse_flash_fwd and its plain
+             version, timed beside the operations bound over the valid
+             routed pairs and the gathered-bytes floor; then the dense
+             model on the static cache against lm-dense-serve on the
+             8192-token prompt: generate_sequential's tokens and where
+             they first depart from lm-dense-serve's are logged, and fed
+             lm-dense-serve's tokens, the static path's logits stay within
+             a relative norm error of 0.05 at every position and pick
+             another token only where lm-dense-serve's top-2 margin is
+             below the largest logit difference there (two valid bf16
+             attention implementations land about 2% apart through 40
+             random layers: compare_tokens' one-ulp allowance cannot hold
+             them; the paged gather engine's first logits are logged
+             beside, for the same spread);
+18. lm-static-context  2 layers, f32 weights and caches: SLA2 prefill
+             logits of sla2_impl "kernel" and "gather" (quant none) within
+             1e-3 relative norm; the dense model's generate_sequential gives
+             the paged ServeEngine's tokens exactly; 'sla' and
+             'sparse_only' serve through StaticWaveEngine with finite
+             logits;
+19. lm-train make_train_step on qwen3-14b at full width, depth cut from 40
+             to 2 layers and the global batch to 2 sequences of 8192 tokens
+             (to fit the card's 80 GB): int8 QAT forward through the
+             kernels, remat "full", 3 AdamW steps of 2 microbatches; every
+             launch count set to 0 before and read after (forward 2 x
+             layers x microbatches x steps, dQ and dK/dV 1 x); finite
+             losses, a finite non-zero gradient on every leaf but the
+             router's; layer 0's causal dQ and dK/dV (BH 40, N 8192)
+             against their plain version (2^-7), with the dK/dV run
+             lengths, timed beside phase 6's bounds;
+20. lm-train-context  2 layers, quant none: loss and gradient through the
+             kernels against the gather path (loss 1e-2, gradient norm
+             0.05); Trainer for 2 steps with a checkpoint each step
+             (1024-token sequences, bf16 AdamW moments: 13 GB a
+             checkpoint), restored bitwise by a fresh Trainer;
+21. dit-baselines wan-dit-1.3b at full width, 2 layers: fuse_branches
+             against the two-pass gather at 32768 latents, f32 weights
+             (relative norm 1e-4 at quant none, 0.05 at int8) with the ms
+             of each engine step; 'sla' and 'sparse_only' (int8) at 4096 latents (cut from
+             32768: their dense-masked O(N^2) scores would take 103 GB a
+             layer at 2 slots) serve one request of 2 steps, finite and
+             within 1e-3 relative norm of the same engine and weights on
+             the CPU, f32 on both.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -142,6 +190,10 @@ LM_MAX_LEN = 32768
 LM_CHUNK = 512
 LM_SLOTS = 4
 LM_CAPTURE = (2048, 1920, 1792, 1664)   # lm-kernel's short prefill
+LM_TRAIN_N = 8192           # lm-train sequence length
+LM_TRAIN_LAYERS = 2         # lm-train depth: 40 cut to 2 to fit 80 GB
+LM_CKPT_N = 1024            # lm-train-context's Trainer sequences
+BASELINE_N_LAT = 4096       # sla / sparse_only latents: O(N^2), cut from 32768
 BF16_TWO_ULPS = 2 ** -7
 
 
@@ -1182,6 +1234,24 @@ def record_margins(eng, margins):
     eng._sample = hooked
 
 
+def record_rows(eng, uid, rows):
+    """Wrap ``eng._sample`` so that every sample of request ``uid``
+    appends its logit row (f32, on the host) to ``rows``."""
+    sample = eng._sample
+
+    def hooked(logits):
+        if logits.shape[0] == 1:            # a prefill's first token
+            slots = [s for s, st in eng._slots.items()
+                     if not st.decoding and st.pos == len(st.tokens)][:1]
+            idx = [0 for s in slots if eng._slots[s].req.uid == uid]
+        else:
+            idx = [s for s, st in eng._slots.items()
+                   if st.decoding and st.req.uid == uid]
+        rows.extend(logits[i].float().cpu() for i in idx)
+        return sample(logits)
+    eng._sample = hooked
+
+
 def compare_tokens(tag, want, got, margins):
     """Greedy tokens ``got`` against ``want`` ({uid: tokens}).  A request
     may differ only where the ``want`` run's top-2 margin is below the
@@ -1591,8 +1661,9 @@ def phase_lm_dense_serve(model, params):
     from repro_torch.kernels import sla2_decode_paged as KP
     counters = {"dense_decode_paged": KP.dense_decode_verify,
                 "paged_flash_prefill": KP.paged_flash_prefill}
-    margins = {}
-    off = serve_lm(model, params, counters, margins=margins)
+    margins, rows = {}, []
+    off = serve_lm(model, params, counters, margins=margins,
+                   on_engine=lambda eng: record_rows(eng, 0, rows))
     check_launches("lm-dense-serve", off, model.cfg.n_layers,
                    "dense_decode_paged", "decode_steps")
     log(f"[lm-dense-serve] ms per prefill chunk "
@@ -1616,7 +1687,8 @@ def phase_lm_dense_serve(model, params):
         f"active slots (median, count): {ng['decode_ms']}; peak memory "
         f"{ng['peak'] / 2**30:.2f} GiB; tokens equal the off run's up to "
         f"the stops {stops}")
-    return {"off": off, "ngram": ng, "stops": stops, "rate": rate}
+    return {"off": off, "ngram": ng, "stops": stops, "rate": rate,
+            "margins": margins, "rows": rows}
 
 
 def phase_lm_spec_context():
@@ -1778,6 +1850,593 @@ def phase_lm_context():
     return rel
 
 
+def lm_layer0_qkv(model, params, tokens):
+    """Layer 0's q, k, v (B*H, N, Dh) of the LM on tokens (B, N), K/V
+    repeated to the query heads, and its causal routing, as
+    ``attention_forward`` gives them to the sparse-branch kernel."""
+    import torch
+    from repro_torch.core import router as R
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    acfg = cfg.attention_config()
+    b, n = tokens.shape
+    lp = params.layers[0]
+    x = L.embed(params.embed, tokens).to(cfg.param_dtype)
+    pos = torch.arange(n, device=DEV)[None].expand(b, n)
+    q, k, v = A._project_qkv(lp.attn, acfg, L.rmsnorm(lp.ln1, x), pos)
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    q = q.transpose(1, 2)
+    k, v = (A._repeat_kv(t.transpose(1, 2), n_rep) for t in (k, v))
+    q, k, v = (t.reshape(b * cfg.num_heads, n, cfg.head_dim).contiguous()
+               for t in (q, k, v))
+    idx, valid = R.route_indices(lp.attn.sla2.router, q, k,
+                                 acfg.router_config())
+    return q, k, v, idx, valid.to(torch.int32)
+
+
+def phase_lm_static(model, params, dense_model, dense_p, dense_run):
+    """qwen3-14b at full width and depth on the static cache: the SLA2
+    model (sla2_impl "kernel", int8 QAT) serves the lm-serve prompts as one
+    wave through StaticWaveEngine; layer 0's causal prefill goes through
+    sparse_flash_fwd and its plain version; the dense model's static path
+    is held to lm-dense-serve on the 8192-token prompt (see the module
+    docstring, phase 17)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quant import smooth_k
+    from repro_torch.kernels.sla2_fwd import (sparse_flash_fwd,
+                                              sparse_flash_fwd_plain)
+    from repro_torch.serve.engine import (EngineConfig, Request,
+                                          StaticWaveEngine,
+                                          generate_sequential,
+                                          make_mixed_requests)
+    km = model.with_overrides(sla2_impl="kernel", quant_bits="int8")
+    cfg = km.cfg
+    bq, bk = cfg.block_q, cfg.block_k
+    max_len = LM_PROMPTS[0] + bk
+    reqs = make_mixed_requests(cfg.vocab_size,
+                               [(n, LM_NEW) for n in LM_PROMPTS], seed=SEED)
+    eng = StaticWaveEngine(km, EngineConfig(max_slots=LM_SLOTS,
+                                            max_len=max_len), device=DEV)
+    eng.load(params)
+    step_ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sparse_flash_fwd.launches = 0
+    for r in reqs:
+        eng.submit(r)
+    while True:
+        t0 = time.perf_counter()
+        active = eng.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if active == 0 and not eng._queue:
+            break
+    launches = sparse_flash_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    done = sorted(eng.completed, key=lambda r: r.uid)
+    del eng
+    free_cuda()
+    log(f"[lm-static] StaticWaveEngine(max_slots={LM_SLOTS}, max_len "
+        f"{max_len}): one wave of prompts {list(LM_PROMPTS)} left-padded to "
+        f"{LM_PROMPTS[0]}, {LM_NEW} new tokens each; sparse_flash_fwd "
+        f"launches {launches} (want {cfg.n_layers}: one per layer of the "
+        f"wave prefill; decode runs the static SLA2 decode); wave prefill "
+        f"{step_ms[0]:.1f} ms, decode steps median "
+        f"{float(np.median(step_ms[1:])):.1f} ms over {len(step_ms) - 1}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"[lm-static] tokens: " + "; ".join(
+        f"{r.uid} (prompt {len(r.prompt)}): {r.output}" for r in done))
+    if launches != cfg.n_layers:
+        raise AssertionError("[lm-static] the wave prefill did not run "
+                             "sparse_flash_fwd once per layer")
+    if [r.uid for r in done] != [r.uid for r in reqs] or any(
+            len(r.output) != LM_NEW or min(r.output) < 0
+            or max(r.output) >= cfg.vocab_size for r in done):
+        raise AssertionError("[lm-static] not every request produced its "
+                             "tokens")
+
+    kw = dict(block_q=bq, block_k=bk, causal=True, quant_bits="int8")
+    with torch.inference_mode():
+        tok = torch.as_tensor(reqs[0].prompt, device=DEV)[None]
+        q, k, v, idx, valid = lm_layer0_qkv(km, params, tok)
+        k = smooth_k(k).contiguous()
+        o, lse = sparse_flash_fwd(q, k, v, idx, valid, **kw)
+        torch.cuda.synchronize()
+        po, pl = sparse_flash_fwd_plain(q, k, v, idx, valid, **kw)
+        err, abs_err = rel_err(o, po), float((o.float() - po.float()).abs()
+                                             .max())
+        lse_err = float((lse - pl).abs().max())
+        ms = cuda_ms(lambda: sparse_flash_fwd(q, k, v, idx, valid, **kw),
+                     iters=20)
+        plain = cuda_ms(lambda: sparse_flash_fwd_plain(q, k, v, idx, valid,
+                                                       **kw),
+                        iters=2, warmup=1)
+    bms, by = bound_ms(q, idx, valid, bq, bk)
+    floor = fwd_gather_floor_ms(q, valid, bq, bk)
+    log(f"[lm-static] layer-0 causal prefill q{tuple(q.shape)} (B 1, "
+        f"{cfg.num_heads} heads, K/V repeated from {cfg.num_kv_heads}) "
+        f"{q.dtype} int8 K_sel={idx.shape[-1]}, "
+        f"{int(valid.sum())} valid routed pairs: rel max err {err:.3e} "
+        f"(bound 1e-3), max abs err {abs_err:.3e}, lse {lse_err:.3e}; "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms "
+        f"({by}), {bms / ms:.1%} of bound; gathered-bytes floor "
+        f"{floor:.4f} ms, {floor / ms:.1%} of it")
+    if not (err < BOUNDS["int8"] and lse_err < 1e-3
+            and bool(torch.isfinite(o).all())):
+        raise AssertionError("[lm-static] the causal forward disagrees with "
+                             "its plain version")
+    del q, k, v, o, po
+    free_cuda()
+
+    # the dense model on the static cache against lm-dense-serve: free
+    # running (generate_sequential), then fed lm-dense-serve's tokens
+    want = dense_run["tokens"][0]
+    t0 = time.perf_counter()
+    seq = generate_sequential(dense_model, dense_p, reqs[0].prompt,
+                              max_new_tokens=LM_NEW, max_len=max_len,
+                              device=DEV)
+    seq_s = time.perf_counter() - t0
+    first = next((i for i, (a, b) in enumerate(zip(seq, want)) if a != b),
+                 None)
+    caches = dense_model.init_caches(1, max_len, device=DEV)
+    rows = []
+    with torch.inference_mode():
+        lg, caches = dense_model.prefill(dense_p, {"tokens": torch.as_tensor(
+            reqs[0].prompt, device=DEV)[None]}, caches)
+        rows.append(lg[0].float().cpu())
+        for t in want[:-1]:
+            lg, caches = dense_model.decode(dense_p, {"token": torch.tensor(
+                [t], dtype=torch.int32, device=DEV)}, caches)
+            rows.append(lg[0].float().cpu())
+    del caches
+    free_cuda()
+    rels, flips = [], []
+    for i, (a, b) in enumerate(zip(rows, dense_run["rows"])):
+        rels.append(float(torch.linalg.norm(a - b) / torch.linalg.norm(b)))
+        diff = float((a - b).abs().max())
+        margin = dense_run["margins"][(0, i)][0]
+        if int(torch.argmax(a)) != want[i]:
+            flips.append({"pos": i, "margin": margin, "max_abs_diff": diff})
+            if not margin < diff:
+                raise AssertionError(
+                    f"[lm-static] fed lm-dense-serve's tokens, the static "
+                    f"path picks another token at {i} where lm-dense-serve's"
+                    f" top-2 margin {margin:.4g} exceeds the largest logit "
+                    f"difference {diff:.4g}")
+    # the first token's logits of the paged engine's own gather reference
+    # (f32 attention over the gathered pages, as the static path computes
+    # it) beside its fused kernels: how far two valid attention
+    # implementations land apart through 40 bf16 layers
+    eng = lm_engine(dense_model, dense_p, paged_impl="gather")
+    gather_rows = []
+    record_rows(eng, 0, gather_rows)
+    eng.submit(Request(uid=0, prompt=reqs[0].prompt, max_new_tokens=1))
+    eng.run_to_completion()
+    del eng
+    free_cuda()
+    rel_to = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    noise = rel_to(gather_rows[0], dense_run["rows"][0])
+    static_gather = rel_to(rows[0], gather_rows[0])
+    log(f"[lm-static] generate_sequential of the dense model on the "
+        f"{LM_PROMPTS[0]}-token prompt, {LM_NEW} tokens in {seq_s:.1f} s: "
+        f"{seq}; first departure from lm-dense-serve's tokens at "
+        f"{first} (lm-dense-serve's top-2 margin there "
+        f"{dense_run['margins'][(0, first)][0] if first is not None else 0:.4g})")
+    log(f"[lm-static] fed lm-dense-serve's tokens: logits rel norm err per "
+        f"position max {max(rels):.3e}, median "
+        f"{float(np.median(rels)):.3e} (bound 0.05); argmax differs at "
+        f"{flips} (each where lm-dense-serve's margin is below the largest "
+        f"logit difference); first-token logits of the paged gather engine "
+        f"against the fused one {noise:.3e}, the static path against the "
+        f"gather engine {static_gather:.3e}")
+    if not max(rels) < 0.05 or len(rels) != LM_NEW:
+        raise AssertionError("[lm-static] the static dense path departs from "
+                             "the paged engine")
+    return {"launches": launches, "err": err, "max_abs_err": abs_err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "gather_floor_ms": floor, "step_ms": step_ms, "rel": max(rels),
+            "gather_vs_fused": noise, "static_vs_gather": static_gather,
+            "flips": flips, "first_departure": first}
+
+
+def phase_lm_static_context():
+    """qwen3-14b at 2 layers, f32 weights and caches: SLA2 prefill logits
+    of the kernel and gather impls (quant none) within 1e-3; the dense
+    model's generate_sequential against the paged ServeEngine, tokens
+    identical; 'sla' and 'sparse_only' through StaticWaveEngine."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.qwen3_14b import config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import (EngineConfig, StaticWaveEngine,
+                                          generate_sequential,
+                                          make_mixed_requests)
+    work = [(2000, 16), (900, 16), (300, 16)]
+    n_pad, max_len = 2048, 2048 + 64
+    model = build_model(config(n_layers=2, dtype="float32",
+                               quant_bits="none"))
+    params = model.init(SEED + 25, device=DEV)
+    reqs = make_mixed_requests(model.cfg.vocab_size, work, seed=SEED + 23)
+    toks = np.zeros((len(work), n_pad), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, n_pad - len(r.prompt):] = r.prompt
+    logits = {}
+    for impl in ("kernel", "gather"):
+        m = model.with_overrides(sla2_impl=impl)
+        caches = m.init_caches(len(work), max_len, dtype=torch.float32,
+                               device=DEV)
+        with torch.inference_mode():
+            logits[impl], _ = m.prefill(
+                params, {"tokens": torch.as_tensor(toks, device=DEV)}, caches)
+        del caches
+        free_cuda()
+    rel = float(torch.linalg.norm(logits["kernel"] - logits["gather"])
+                / torch.linalg.norm(logits["gather"]))
+    log(f"[lm-static-context] 2 layers, f32, quant none: SLA2 prefill "
+        f"logits of {len(work)} prompts left-padded to {n_pad}, kernel vs "
+        f"gather rel norm err {rel:.3e} (bound 1e-3)")
+    if not rel < 1e-3:
+        raise AssertionError("[lm-static-context] kernel and gather prefill "
+                             "disagree")
+    del params, model, logits
+    free_cuda()
+
+    dense = build_model(config(n_layers=2, dtype="float32", mechanism="full"))
+    dp = dense.init(SEED + 26, device=DEV)
+    seq = {r.uid: generate_sequential(dense, dp, r.prompt,
+                                      max_new_tokens=r.max_new_tokens,
+                                      max_len=max_len,
+                                      cache_dtype="float32", device=DEV)
+           for r in make_mixed_requests(dense.cfg.vocab_size, work,
+                                        seed=SEED + 23)}
+    eng = lm_engine(dense, dp, max_slots=3, max_len=4096,
+                    page_dtype="float32")
+    for r in make_mixed_requests(dense.cfg.vocab_size, work, seed=SEED + 23):
+        eng.submit(r)
+    paged = {r.uid: r.output for r in eng.run_to_completion()}
+    del eng, dp, dense
+    free_cuda()
+    log(f"[lm-static-context] dense, 2 layers, f32: generate_sequential "
+        f"tokens equal the paged ServeEngine's: {seq == paged}")
+    if seq != paged:
+        raise AssertionError("[lm-static-context] generate_sequential and "
+                             "the paged engine disagree")
+
+    for mech in ("sla", "sparse_only"):
+        m = build_model(config(n_layers=2, dtype="float32", mechanism=mech))
+        mp = m.init(SEED + 27, device=DEV)
+        eng = StaticWaveEngine(m, EngineConfig(max_slots=3, max_len=max_len),
+                               device=DEV)
+        eng.load(mp)
+        finite = []
+        sample = eng._sample
+
+        def checked(lg):
+            finite.append(bool(torch.isfinite(lg).all()))
+            return sample(lg)
+        eng._sample = checked
+        for r in make_mixed_requests(m.cfg.vocab_size, [(n, 8) for n, _ in
+                                                        work],
+                                     seed=SEED + 23):
+            eng.submit(r)
+        out = {r.uid: r.output for r in eng.run_to_completion()}
+        ok = (all(finite) and sorted(out) == [0, 1, 2]
+              and all(len(t) == 8 and 0 <= min(t) and max(t) < m.cfg.vocab_size
+                      for t in out.values()))
+        log(f"[lm-static-context] {mech} (dense-masked O(N^2) baseline), 2 "
+            f"layers, f32: StaticWaveEngine tokens {out}; logits finite at "
+            f"{len(finite)} sampling points: {ok}")
+        del eng, mp, m
+        free_cuda()
+        if not ok:
+            raise AssertionError(f"[lm-static-context] {mech} gave no finite "
+                                 f"tokens")
+    return rel
+
+
+def phase_lm_train():
+    """make_train_step on qwen3-14b at full width, depth cut to 2 layers:
+    int8 QAT forward through the kernels, remat "full", sequences of
+    LM_TRAIN_N tokens, 2 microbatches of one sequence, 3 AdamW steps, with
+    exact launch counts; then layer 0's causal dQ and dK/dV against their
+    plain version."""
+    import torch
+    from repro_torch.configs.qwen3_14b import config
+    from repro_torch.core.quant import smooth_k
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import sla2_bwd as B
+    from repro_torch.kernels.sla2_bwd import sparse_flash_bwd
+    from repro_torch.kernels.sla2_fwd import sparse_flash_fwd
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    model = build_model(config(n_layers=LM_TRAIN_LAYERS, sla2_impl="kernel",
+                               quant_bits="int8", remat="full"))
+    cfg = model.cfg
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=1,
+                       total_steps=TRAIN_STEPS, microbatches=MICROBATCHES)
+    state = init_train_state(model, SEED + 30, tcfg, device=DEV)
+    params = state["params"]
+    ds = make_dataset(cfg, seq_len=LM_TRAIN_N, global_batch=MICROBATCHES,
+                      seed=SEED + 31)
+    step_fn = make_train_step(model, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sparse_flash_fwd.launches = 0
+    sparse_flash_bwd.launches_dq = sparse_flash_bwd.launches_dkv = 0
+    losses, step_ms = [], []
+    for step in range(TRAIN_STEPS):
+        batch = {key: torch.as_tensor(val, device=DEV)
+                 for key, val in ds[step].items()}
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            bad = [name for name, t in state["opt"]["m"].items()
+                   if not bool(torch.isfinite(t).all())
+                   or (".router." in name) == bool(t.abs().max() > 0)]
+            if bad:
+                raise AssertionError(
+                    f"[lm-train] after step 1, AdamW m is non-finite, zero "
+                    f"outside the router or non-zero in it for {bad[:5]}")
+    launches = {"sparse_flash_fwd": sparse_flash_fwd.launches,
+                "sparse_flash_bwd_dq": sparse_flash_bwd.launches_dq,
+                "sparse_flash_bwd_dkv": sparse_flash_bwd.launches_dkv}
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.parameters())
+    per = cfg.n_layers * MICROBATCHES * TRAIN_STEPS
+    want = {"sparse_flash_fwd": 2 * per, "sparse_flash_bwd_dq": per,
+            "sparse_flash_bwd_dkv": per}
+    log(f"[lm-train] {cfg.name} at full width, {cfg.n_layers} layers "
+        f"({n_params / 1e9:.3f} B params), {LM_TRAIN_N}-token sequences, "
+        f"{TRAIN_STEPS} steps x {MICROBATCHES} microbatches of one sequence,"
+        f" int8 QAT forward, remat full: losses "
+        f"{[round(x, 5) for x in losses]}; ms per optimizer step "
+        f"{[round(t, 1) for t in step_ms]}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[lm-train] launches {launches} (want {want}: the forward kernel "
+        f"2 x layers x microbatches x steps, once in the forward and once "
+        f"more when remat re-runs the layer in the backward; dQ and dK/dV "
+        f"once each); every leaf but the router's got a finite non-zero "
+        f"gradient")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("[lm-train] a training loss is not finite")
+    if launches != want:
+        raise AssertionError("[lm-train] the train path did not run every "
+                             "kernel the expected number of times")
+
+    bq, bk = cfg.block_q, cfg.block_k
+    kw = dict(block_q=bq, block_k=bk, causal=True, prefix_len=0)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 32)
+    with torch.no_grad():
+        tok = torch.as_tensor(ds[0]["tokens"][:1], device=DEV)
+        q, k, v, idx, valid = lm_layer0_qkv(model, params, tok)
+        k = smooth_k(k).contiguous()
+        o, lse = sparse_flash_fwd(q, k, v, idx, valid, quant_bits="int8",
+                                  block_q=bq, block_k=bk, causal=True)
+        do = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)
+        got = B.sparse_flash_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want_g = B.sparse_flash_bwd_plain(q, k, v, idx, valid, o, lse, do,
+                                          **kw)
+        errs = [rel_err(a, b) for a, b in zip(got, want_g)]
+        abs_errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want_g)]
+        runs = run_lengths(idx, valid, LM_TRAIN_N // bk).float()
+        dd, is_, vs, off = B.kernel_inputs(o, do, idx, valid,
+                                           LM_TRAIN_N // bk)
+        times = {
+            "dq": cuda_ms(lambda: B.launch_dq(q, k, v, do, lse, dd, idx,
+                                              valid, **kw), iters=5),
+            "dkv": cuda_ms(lambda: B.launch_dkv(q, k, v, do, lse, dd, is_,
+                                                vs, off, **kw), iters=5)}
+        plain = {
+            "dq": cuda_ms(lambda: B.sparse_flash_dq_plain(
+                q, k, v, idx, valid, o, lse, do, **kw), iters=1, warmup=1),
+            "dkv": cuda_ms(lambda: B.sparse_flash_dkv_plain(
+                q, k, v, idx, valid, o, lse, do, **kw), iters=1, warmup=1)}
+    bounds = bwd_bounds(q, idx, valid, bq, bk)
+    floors = gather_floor_ms(q, valid, bq, bk)
+    log(f"[lm-train] layer-0 causal backward q{tuple(q.shape)} bf16, o/lse "
+        f"from the int8 forward, {int(valid.sum())} routed pairs: rel max "
+        f"err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (bound "
+        f"2^-7), max abs err {abs_errs[0]:.3e} / {abs_errs[1]:.3e} / "
+        f"{abs_errs[2]:.3e}")
+    log(f"[lm-train] dK/dV run lengths (valid pairs per (bh, kv block)): "
+        f"mean {float(runs.mean()):.2f}, p99 "
+        f"{float(torch.quantile(runs, 0.99)):.0f}, max {int(runs.max())} "
+        f"(kv block {int(runs.max(dim=0).values.argmax())}), empty "
+        f"{int((runs == 0).sum())} of {runs.numel()}")
+    for name in ("dq", "dkv"):
+        b16, by, f32 = bounds[name]
+        log(f"[lm-train] BH={q.shape[0]} causal {name}: kernel "
+            f"{times[name]:.3f} ms, plain {plain[name]:.3f} ms, bound "
+            f"{b16:.4f} ms ({by}, bf16 tensor cores; {f32:.3f} ms on f32 "
+            f"CUDA cores), {b16 / times[name]:.1%} of bound; gathered-bytes "
+            f"floor {floors[name]:.4f} ms, "
+            f"{floors[name] / times[name]:.1%} of it")
+    if not all(e <= BF16_TWO_ULPS for e in errs):
+        raise AssertionError("[lm-train] the causal backward kernels "
+                             "disagree with their plain version")
+    del state, params, q, k, v, o, do, got, want_g
+    free_cuda()
+    return {"launches": launches, "step_ms": step_ms, "peak": peak,
+            "abs_err": {"dq": abs_errs[0], "dkv": max(abs_errs[1:])},
+            "times": times, "plain": plain, "bounds": bounds,
+            "gather_floor": floors}
+
+
+def phase_lm_train_context():
+    """2 layers, quant none: loss and gradient through the kernels against
+    the gather path; then Trainer for 2 steps with a checkpoint each step,
+    restored bitwise by a fresh Trainer."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import all_steps
+    from repro_torch.configs.qwen3_14b import config
+    from repro_torch.data import make_dataset
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+    model = build_model(config(n_layers=LM_TRAIN_LAYERS, quant_bits="none",
+                               sla2_impl="kernel"))
+    params = model.init(SEED + 33, device=DEV)
+    batch = {key: torch.as_tensor(val, device=DEV) for key, val in
+             make_dataset(model.cfg, seq_len=LM_TRAIN_N, global_batch=1,
+                          seed=SEED + 34)[0].items()}
+    names, leaves = zip(*params.named_parameters())
+    res = {}
+    for impl in ("kernel", "gather"):
+        loss, _ = model.with_overrides(sla2_impl=impl).loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        res[impl] = (float(loss.detach()),
+                     [torch.zeros_like(p, dtype=torch.float32) if gr is None
+                      else gr.float() for p, gr in zip(leaves, grads)])
+        del grads, loss
+    (lk, gk), (lg, gg) = res["kernel"], res["gather"]
+    loss_rel = abs(lk - lg) / abs(lg)
+    num = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(gk, gg)))
+    den = math.sqrt(sum(float((b ** 2).sum()) for b in gg))
+    log(f"[lm-train-context] {LM_TRAIN_LAYERS} layers, full width, "
+        f"{LM_TRAIN_N} tokens, quant none: loss kernel {lk:.6f} gather "
+        f"{lg:.6f} (rel err {loss_rel:.3e}, bound 1e-2); gradient rel norm "
+        f"err {num / den:.3e} over {len(names)} leaves (bound 0.05)")
+    if not (loss_rel < 1e-2 and num / den < 0.05):
+        raise AssertionError("[lm-train-context] kernel and gather "
+                             "gradients disagree")
+    del res, gk, gg, params, leaves
+    free_cuda()
+
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainerConfig(
+            train=TrainConfig(optimizer=AdamWConfig(
+                lr=1e-3, state_dtype="bfloat16"), warmup_steps=1,
+                total_steps=2),
+            ckpt_dir=d, max_steps=2, ckpt_every=1, keep=1, log_every=1,
+            seed=SEED + 35)
+        ds = make_dataset(model.cfg, seq_len=LM_CKPT_N, global_batch=1,
+                          seed=SEED + 36)
+        t0 = time.perf_counter()
+        out = Trainer(model, tc, ds, device=DEV, log_fn=log).run()
+        if all_steps(d) != [2]:
+            raise AssertionError(f"checkpoints on disk: {all_steps(d)}")
+        a = out.pop("state")
+        free_cuda()
+        back = Trainer(model, tc, ds, device=DEV, log_fn=log).run()
+        b = back["state"]
+        pairs = list(zip(a["params"].parameters(), b["params"].parameters()))
+        for key in ("m", "v"):
+            pairs += [(t, b["opt"][key][name])
+                      for name, t in a["opt"][key].items()]
+        same = all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in pairs)
+        same = same and int(a["opt"]["step"]) == int(b["opt"]["step"]) == 2
+        log(f"[lm-train-context] Trainer ({LM_CKPT_N}-token sequences, bf16 "
+            f"AdamW moments, a checkpoint per step) {time.perf_counter() - t0:.1f}"
+            f" s: losses {[round(x, 5) for x in out['losses']]}, a fresh "
+            f"Trainer restored step 2 with {len(pairs)} leaves bitwise "
+            f"equal: {same}")
+        if back["losses"] or not same:
+            raise AssertionError("[lm-train-context] the restored state "
+                                 "differs from the saved")
+        del a, b, pairs, out, back
+    free_cuda()
+    return loss_rel, num / den
+
+
+def phase_dit_baselines():
+    """wan-dit-1.3b at full width, 2 layers: fuse_branches against the
+    two-pass gather at 32768 latents (quant none and int8), and the SLA
+    baselines served at 4096 latents against the same engine and weights
+    on the CPU in f32."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.wan_dit_1_3b import config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import diffusion as DS
+    out = {}
+    for quant in ("none", "int8"):
+        # f32 weights: in bf16 the two summation orders round apart by
+        # more than the 1e-4 the comparison holds
+        model = build_model(config(n_layers=2, quant_bits=quant,
+                                   sla2_impl="gather", dtype="float32"))
+        params = model.init(SEED + 40, device=DEV)
+        perturb_(params, seed=SEED + 41)
+        res = {}
+        for fuse in (False, True):
+            m = model.with_overrides(fuse_branches=fuse)
+            eng = DS.DiffusionEngine(m, params, DS.DiffusionEngineConfig(
+                max_slots=1, n_latent=N_LAT, max_steps=2,
+                attn_impl="gather"), device=DEV)
+            eng.submit(DS.make_video_requests(1, m.cfg, n_latent=N_LAT,
+                                              steps=(2,), seed=SEED + 42)[0])
+            ms = []
+            while not eng.scheduler.idle:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fin = eng.step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res[fuse] = (fin[0].output, ms)
+            del eng
+            free_cuda()
+        rel = float(np.linalg.norm(res[True][0] - res[False][0])
+                    / np.linalg.norm(res[False][0]))
+        bound = 1e-4 if quant == "none" else 0.05
+        out[quant] = (rel, res[False][1], res[True][1])
+        log(f"[dit-baselines] fuse_branches, 2 layers, {N_LAT} latents, "
+            f"f32, quant {quant}, gather: fused vs two-pass rel norm err "
+            f"{rel:.3e} (bound {bound:g}); ms per engine step two-pass "
+            f"{[round(t, 1) for t in res[False][1]]}, fused "
+            f"{[round(t, 1) for t in res[True][1]]}")
+        if not rel < bound:
+            raise AssertionError("[dit-baselines] the fused gather departs "
+                                 "from the two-pass gather")
+        del params, model, res
+        free_cuda()
+
+    for mech in ("sla", "sparse_only"):
+        model = build_model(config(n_layers=2, mechanism=mech,
+                                   quant_bits="int8", dtype="float32"))
+        params = model.init(SEED + 43, device=DEV)
+        perturb_(params, seed=SEED + 44)
+        outs = {}
+        for dev in (DEV, "cpu"):
+            p = params if dev == DEV else copy.deepcopy(params).to("cpu")
+            eng = DS.DiffusionEngine(model, p, DS.DiffusionEngineConfig(
+                max_slots=1, n_latent=BASELINE_N_LAT, max_steps=2), device=dev)
+            eng.submit(DS.make_video_requests(
+                1, model.cfg, n_latent=BASELINE_N_LAT, steps=(2,),
+                seed=SEED + 45)[0])
+            t0 = time.perf_counter()
+            outs[dev] = (eng.run_to_completion()[0].output,
+                         time.perf_counter() - t0)
+            del eng, p
+        got, want = outs[DEV][0], outs["cpu"][0]
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        ok = bool(np.isfinite(got).all()) and rel < 1e-3
+        qat = "int8" if mech == "sparse_only" else "no QAT, as the reference"
+        log(f"[dit-baselines] {mech} ({qat}, dense-masked O(N^2)), 2 layers, "
+            f"{BASELINE_N_LAT} latents, one request of 2 steps: card "
+            f"{outs[DEV][1]:.1f} s, CPU {outs['cpu'][1]:.1f} s (f32 both); "
+            f"rel norm err {rel:.3e} (bound 1e-3), finite {ok}")
+        out[mech] = rel
+        del params, model
+        free_cuda()
+        if not ok:
+            raise AssertionError(f"[dit-baselines] {mech} on the card departs "
+                                 f"from the CPU")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1852,17 +2511,27 @@ def main() -> int:
     lm_kern = timed("lm-kernel", phase_lm_kernel, lm_model, lm_params)
     lm_serve = timed("lm-serve", phase_lm_serve, lm_model, lm_params)
     lm_spec = timed("lm-spec", phase_lm_spec, lm_model, lm_params, lm_serve)
+    # the dense model shares every tensor of lm_params but the sla2 leaves,
+    # so keeping both alive for lm-static costs no memory
     dense_model, dense_p = dense_model_params(lm_model, lm_params)
-    del lm_params
     free_cuda()
     lm_dkern = timed("lm-dense-kernel", phase_lm_dense_kernel, dense_model,
                      dense_p)
     lm_dense = timed("lm-dense-serve", phase_lm_dense_serve, dense_model,
                      dense_p)
-    del dense_p
     free_cuda()
     timed("lm-context", phase_lm_context)
     timed("lm-spec-context", phase_lm_spec_context)
+    lm_static = timed("lm-static", phase_lm_static, lm_model, lm_params,
+                      dense_model, dense_p, lm_dense["off"] | {
+                          "margins": lm_dense["margins"],
+                          "rows": lm_dense["rows"]})
+    del lm_params, dense_p
+    free_cuda()
+    timed("lm-static-context", phase_lm_static_context)
+    lm_train = timed("lm-train", phase_lm_train)
+    timed("lm-train-context", phase_lm_train_context)
+    timed("dit-baselines", phase_dit_baselines)
 
     ms, plain, bms, by, floor = kern["timings"][dit_heads]
     no_library = ("no single PyTorch call computes a routed block-sparse "
@@ -1874,10 +2543,21 @@ def main() -> int:
         "replaces": "src/repro/kernels/sla2_fwd.py:176",
         "launches": serve["launches"],
         "launches_by_path": {"serve": serve["launches"],
-                             "train": train["sparse_flash_fwd"]},
+                             "train": train["sparse_flash_fwd"],
+                             "lm_static_wave_prefill": lm_static["launches"],
+                             "lm_train": lm_train["launches"][
+                                 "sparse_flash_fwd"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "gather_floor_ms": floor,
+        "lm_causal": {
+            "shape": "qwen3-14b layer-0 prefill, BH 40 (K/V repeated from "
+                     "8 heads), N 8192, d 128, bq 128, bk 64, int8, causal",
+            "max_abs_err": lm_static["max_abs_err"], "ms": lm_static["ms"],
+            "plain_ms": lm_static["plain_ms"],
+            "bound_ms": lm_static["bound_ms"],
+            "bound_by": lm_static["bound_by"],
+            "gather_floor_ms": lm_static["gather_floor_ms"]},
         "library_ms": None,
         "library_note": "no single PyTorch call computes routed int8 "
                         "block-sparse attention; dense SDPA is another "
@@ -1890,13 +2570,23 @@ def main() -> int:
             "source": "src/repro_torch/csrc/sla2_bwd.cu",
             "replaces": f"src/repro/kernels/sla2_bwd.py:{line}",
             "launches": train[name],
-            "launches_by_path": {"train": train[name]},
+            "launches_by_path": {"train": train[name],
+                                 "lm_train": lm_train["launches"][name]},
             "max_abs_err": bwd["abs_err"][key], "ms": bwd["times"][key],
             "plain_ms": bwd["plain"][key], "bound_ms": b16,
             "bound_by": by16, "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
             "bound_ms_f32_cuda_cores": f32,
             "gather_floor_ms": bwd["gather_floor"][key],
-            "library_ms": None, "library_note": no_library})
+            "library_ms": None, "library_note": no_library,
+            "lm_causal": {
+                "shape": "qwen3-14b layer-0 training backward, BH 40, N "
+                         "8192, d 128, bq 128, bk 64, bf16, causal",
+                "max_abs_err": lm_train["abs_err"][key],
+                "ms": lm_train["times"][key],
+                "plain_ms": lm_train["plain"][key],
+                "bound_ms": lm_train["bounds"][key][0],
+                "bound_by": lm_train["bounds"][key][1],
+                "gather_floor_ms": lm_train["gather_floor"][key]}})
     d_abs, d_ms, d_plain, d_bound, d_graph, d_eps = lm_kern["decode"]
     w4_ms, w4_plain, w4_bound, _, w4_graph, w4_eps = lm_spec["w4"]
     by_path = {"lm_serve": lm_serve["launches"]["sla2_decode_paged"],

@@ -26,7 +26,7 @@ def smoke_config(**overrides):
         n_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=256, qk_norm=True, tie_embeddings=False,
         mechanism="sla2", block_q=32, block_k=16, k_frac=0.25,
-        max_target_len=512, dtype="float32",
+        max_target_len=512, loss_chunk=64, dtype="float32", q_chunk=4,
     )
     kw.update(overrides)
     return ModelConfig(**kw)

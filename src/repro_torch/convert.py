@@ -1,13 +1,15 @@
 """Carry a JAX param pytree across to the port: the DiT
-(``dit_params_from_numpy``, ``train_state_from_numpy``) and the LM
-(``lm_params_from_numpy``).
+(``dit_params_from_numpy``), the LM (``lm_params_from_numpy``) and a
+train state of either (``train_state_from_numpy``).
 
 The input is the reference's params as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), with the per-block tensors stacked
 on a leading ``n_layers`` axis.  Every matrix that the reference applies as
 ``x @ w`` is stored ``(in, out)`` there; the port keeps it as an
 ``nn.Linear`` weight ``(out, in)``, so each such matrix is transposed.
-Vectors (biases, LayerNorm scales) and the alpha logits copy as they are.
+Vectors (biases, LayerNorm scales), the alpha logits and the SLA
+baseline's ``proj_l`` (applied as ``o_l @ proj_l`` on both sides) copy as
+they are.
 ``train_state_from_numpy`` carries a whole train state across: the AdamW
 moments and the EF buffers have the params' tree, so they go through the
 same converter (and its transposes).
@@ -75,6 +77,8 @@ def dit_params_from_numpy(tree: dict, cfg: D.DiTConfig,
                     blocks["sla2"]["alpha_logit"]), "router": {
                         k: at(w) for k, w in
                         (blocks["sla2"].get("router") or {}).items()}})
+            if bp.sla is not None:
+                _set(bp.sla.proj_l, at(blocks["sla"]["proj_l"]))
     return params
 
 
@@ -101,22 +105,30 @@ def sla2_params_from_numpy(tree: dict, device="cuda") -> S.SLA2Params:
     return params
 
 
-def _named_tensors(tree: dict, cfg: D.DiTConfig, dtype: str, dev) -> dict:
+def _params_from_numpy(tree: dict, cfg, dev):
+    if isinstance(cfg, D.DiTConfig):
+        return dit_params_from_numpy(tree, cfg, dev)
+    return lm_params_from_numpy(tree, cfg, dev)
+
+
+def _named_tensors(tree: dict, cfg, dtype: str, dev) -> dict:
     """A params-shaped tree as {parameter name: tensor} in ``dtype``."""
-    mod = dit_params_from_numpy(tree, dataclasses.replace(cfg, dtype=dtype),
-                                dev)
+    mod = _params_from_numpy(tree, dataclasses.replace(cfg, dtype=dtype), dev)
     return {n: p.detach() for n, p in mod.named_parameters()}
 
 
-def train_state_from_numpy(state: dict, cfg: D.DiTConfig,
-                           device="cuda") -> dict:
+def train_state_from_numpy(state: dict, cfg, device="cuda") -> dict:
     """A reference train state ({"params", "opt": {"m", "v", "step"}, and
-    "ef" with EF compression}, as numpy) as the port's train state on
-    ``device``; the moments keep their dtype (``state_dtype``)."""
+    "ef" with EF compression}, as numpy) of the DiT (``DiTConfig``) or the
+    LM (``ModelConfig``) as the port's train state on ``device``; the
+    moments keep their dtype (``state_dtype``)."""
     dev = resolve_device(device)
     opt = state["opt"]
-    leaf = lambda tree: np.asarray(tree["patch_in"]["w"])
-    out = {"params": dit_params_from_numpy(state["params"], cfg, dev),
+    if isinstance(cfg, D.DiTConfig):
+        leaf = lambda tree: np.asarray(tree["patch_in"]["w"])
+    else:
+        leaf = lambda tree: np.asarray(tree["embed"]["table"])
+    out = {"params": _params_from_numpy(state["params"], cfg, dev),
            "opt": {"m": _named_tensors(opt["m"], cfg,
                                        str(leaf(opt["m"]).dtype), dev),
                    "v": _named_tensors(opt["v"], cfg,
@@ -136,8 +148,9 @@ def lm_params_from_numpy(tree: dict, cfg: T.ModelConfig,
     ``groups["l<k>"]`` has a leading axis of ``n_groups``, and layer
     ``g * len(layer_kinds) + k`` is entry g of sub-key ``l<k>``.  Matrices
     applied as ``x @ w`` (in, out) are transposed into ``nn.Linear``
-    weights (out, in); ``lm_head`` (d_model, vocab) likewise.  A
-    ``mechanism="full"`` tree has no ``sla2`` leaves."""
+    weights (out, in); ``lm_head`` (d_model, vocab) likewise.  Only a
+    ``mechanism="sla2"`` tree has ``sla2`` leaves, only an ``"sla"`` one
+    ``sla``."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -165,6 +178,8 @@ def lm_params_from_numpy(tree: dict, cfg: T.ModelConfig,
                     "alpha_logit": at(at_["sla2"]["alpha_logit"]),
                     "router": {k: at(w) for k, w in
                                (at_["sla2"].get("router") or {}).items()}})
+            if lp.attn.sla is not None:
+                _set(lp.attn.sla.proj_l, at(at_["sla"]["proj_l"]))
             for name in ("w_up", "w_down", "w_gate"):
                 _linear(getattr(lp.mlp, name), at(lt["mlp"][name]))
     return params

@@ -8,7 +8,7 @@ the routed blocks' share, O(k%) subtractions instead of O(1-k%) additions.
 Memory is bounded by chunking the query-block axis (``q_chunk`` query
 blocks at a time), so the transient score tensor is
 (BH, q_chunk, b_q, K_sel*b_k) whatever N is.  The single-pass variant
-(``fuse_branches``) waits for a later slice.
+(``fuse_branches``) gathers each routed K/V tile once for both branches.
 """
 from __future__ import annotations
 
@@ -177,12 +177,20 @@ def gather_sparse_attention(q, k, v, idx, valid, *, block_q: int,
 
 def sla2_gather(alpha_tok, q, k, v, idx, valid, *, block_q: int,
                 block_k: int, causal: bool, quant_bits: str = "none",
-                prefix_len: int = 0, q_chunk: int = 32):
-    """SLA2 Eq. 13 with the gather-based sparse branch, two passes.
+                prefix_len: int = 0, q_chunk: int = 32,
+                fuse_branches: bool = False):
+    """SLA2 Eq. 13 with the gather-based sparse branch.
 
     alpha_tok (BH, N, 1) in (0, 1); q/k/v (BH, N, d); idx/valid from
     ``router.route_indices``.  Alpha is forced to 1 where the linear
-    complement is empty."""
+    complement is empty.  Two passes (each routed tile gathered by the
+    sparse and again by the linear branch), or with ``fuse_branches`` one
+    (``_sla2_gather_fused``)."""
+    if fuse_branches:
+        return _sla2_gather_fused(
+            alpha_tok, q, k, v, idx, valid, block_q=block_q,
+            block_k=block_k, causal=causal, quant_bits=quant_bits,
+            prefix_len=prefix_len, q_chunk=q_chunk)
     o_s = gather_sparse_attention(
         q, k, v, idx, valid, block_q=block_q, block_k=block_k,
         causal=causal, quant_bits=quant_bits, prefix_len=prefix_len,
@@ -194,3 +202,113 @@ def sla2_gather(alpha_tok, q, k, v, idx, valid, *, block_q: int,
     o = (a_eff * o_s.to(torch.float32)
          + (1.0 - a_eff) * o_l.to(torch.float32))
     return o.to(q.dtype)
+
+
+def _sla2_gather_fused(alpha_tok, q, k, v, idx, valid, *, block_q: int,
+                       block_k: int, causal: bool, quant_bits: str,
+                       prefix_len: int, q_chunk: int):
+    """Both branches in one chunked pass over the routed K/V tiles.
+
+    With quantisation on, phi(K) of the linear branch's subtraction is
+    taken over the gathered tiles as the sparse branch sees them (smoothed
+    and fake-quantised): the reference's deliberate single-gather
+    approximation, inside the QAT forward's noise."""
+    bh, n_q, d = q.shape
+    n_kv, d_v = k.shape[1], v.shape[-1]
+    t_m, t_n = n_q // block_q, n_kv // block_k
+    k_sel = idx.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    valid = valid.bool()
+
+    # complement base states: one pass over K/V
+    kfb_f = phi(k).reshape(bh, t_n, block_k, d)
+    vb_f = v.to(torch.float32).reshape(bh, t_n, block_k, d_v)
+    h = torch.einsum("bjkd,bjke->bjde", kfb_f, vb_f)
+    z = kfb_f.sum(dim=-2)
+    if causal:
+        hpre, zpre = torch.cumsum(h, dim=1), torch.cumsum(z, dim=1)
+        n_full = (torch.arange(t_m, device=q.device) * block_q + 1) // block_k
+        if prefix_len:
+            n_full = torch.clamp(n_full, min=prefix_len // block_k)
+        sel_pre = torch.clamp(n_full - 1, min=0)
+    else:
+        h_tot, z_tot = h.sum(dim=1), z.sum(dim=1)
+
+    q_s, k_s = q, k
+    if quant_bits != "none":
+        k_s = fake_quant(smooth_k(k).reshape(bh, t_n, block_k, d),
+                         quant_bits, (-2, -1)).reshape(bh, n_kv, d)
+        q_s = fake_quant(q.reshape(bh, t_m, block_q, d), quant_bits,
+                         (-2, -1)).reshape(bh, n_q, d)
+    kb = k_s.reshape(bh, t_n, block_k, d)
+    vb = v.reshape(bh, t_n, block_k, d_v)
+    qb = q_s.reshape(bh, t_m, block_q, d)
+    qfb = phi(q).reshape(bh, t_m, block_q, d)
+    ab = alpha_tok.reshape(bh, t_m, block_q, 1)
+    ar_k = torch.arange(block_k, device=q.device)
+    ar_q = torch.arange(block_q, device=q.device)
+
+    out = torch.empty(bh, t_m, block_q, d_v, device=q.device,
+                      dtype=torch.float32)
+    for i0, i1 in _chunks(t_m, q_chunk):
+        qc, qfc, ac = qb[:, i0:i1], qfb[:, i0:i1], ab[:, i0:i1]
+        idxc, validc = idx[:, i0:i1], valid[:, i0:i1]
+        c = i1 - i0
+        kg = _gather_tiles(kb, idxc)
+        vg = _gather_tiles(vb, idxc)
+        # sparse branch
+        s = torch.einsum("bcqd,bcjkd->bcqjk", qc.to(torch.float32),
+                         kg.to(torch.float32)) * scale
+        kpos = idxc[..., None].long() * block_k + ar_k
+        mask = validc[..., None]
+        if causal:
+            qpos = ((i0 + torch.arange(c, device=q.device))[:, None]
+                    * block_q + ar_q)
+            vis = qpos[None, :, :, None, None] >= kpos[:, :, None, :, :]
+            if prefix_len:
+                vis = vis | (kpos[:, :, None, :, :] < prefix_len)
+            mask = mask[:, :, None] & vis
+        else:
+            mask = mask[:, :, None]
+        s = torch.where(mask, s, NEG_INF)
+        sf = s.reshape(bh, c, block_q, k_sel * block_k)
+        m = torch.clamp(torch.amax(sf, dim=-1, keepdim=True), min=-1e20)
+        p = torch.exp(sf - m)
+        if quant_bits == "int8":
+            p_q = torch.round(p * 127.0) / 127.0
+            p = p + (p_q - p).detach()
+        elif quant_bits == "fp8":
+            p = fake_quant(p.reshape(bh, c, block_q, k_sel, block_k),
+                           quant_bits, (-2, -1)).reshape(p.shape)
+        vq = (fake_quant(vg, quant_bits, (-2, -1)) if quant_bits != "none"
+              else vg)
+        den_s = torch.clamp(p.sum(-1, keepdim=True), min=_EPS)
+        o_s = torch.einsum("bcqjk,bcjke->bcqe",
+                           (p / den_s).reshape(bh, c, block_q, k_sel,
+                                               block_k),
+                           vq.to(torch.float32))
+        # linear branch over the same tiles
+        if causal:
+            nf, sp = n_full[i0:i1], sel_pre[i0:i1]
+            hb = torch.where((nf > 0)[None, :, None, None], hpre[:, sp], 0.0)
+            zb = torch.where((nf > 0)[None, :, None], zpre[:, sp], 0.0)
+            in_lin = idxc < nf[None, :, None]
+        else:
+            hb = h_tot[:, None].expand(-1, c, -1, -1)
+            zb = z_tot[:, None].expand(-1, c, -1)
+            in_lin = torch.ones_like(validc)
+        w = (validc & in_lin).to(torch.float32)
+        ls = torch.einsum("bcqd,bcjkd->bcqjk", qfc,
+                          phi(kg.to(torch.float32)))
+        ls = ls * w[:, :, None, :, None]
+        sub_num = torch.einsum("bcqjk,bcjke->bcqe", ls,
+                               vg.to(torch.float32))
+        sub_den = ls.sum(dim=(-1, -2))
+        den_tot = torch.einsum("bcqd,bcd->bcq", qfc, zb)
+        num = torch.einsum("bcqd,bcde->bcqe", qfc, hb) - sub_num
+        den = den_tot - sub_den
+        den = torch.where(den > 1e-4 * den_tot + _EPS, den, 0.0)[..., None]
+        o_l = torch.where(den > 0, num / torch.clamp(den, min=_EPS), 0.0)
+        a_eff = torch.where(den > 0, ac.to(torch.float32), 1.0)
+        out[:, i0:i1] = a_eff * o_s + (1.0 - a_eff) * o_l
+    return out.reshape(bh, n_q, d_v).to(q.dtype)

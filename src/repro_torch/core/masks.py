@@ -71,6 +71,16 @@ def sliding_window_block_mask(t_m: int, t_n: int, b_q: int, b_k: int,
     return causal & inside
 
 
+def top_k(s: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries along the last axis, in
+    descending order, ties broken towards the lower index, as
+    ``jax.lax.top_k`` breaks them (``torch.topk`` leaves the order of
+    equal values open): causal rows with block_q > block_k force several
+    diagonal blocks to the same +inf score."""
+    vals, idx = torch.sort(s, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def topk_block_mask(scores: torch.Tensor, k_sel: int, *,
                     allowed: Optional[torch.Tensor] = None,
                     force: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -78,8 +88,7 @@ def topk_block_mask(scores: torch.Tensor, k_sel: int, *,
 
     ``allowed`` entries outside are never selected; ``force`` entries are
     always selected (boosted to +inf, counted inside k_sel).  Returns a
-    float {0, 1} mask.  Tie order follows ``torch.topk``, which may differ
-    from ``jax.lax.top_k`` on exactly tied scores."""
+    float {0, 1} mask; ties go to the lower index (``top_k``)."""
     s = scores
     if force is not None:
         s = torch.where(force, torch.full_like(s, float("inf")), s)
@@ -87,7 +96,7 @@ def topk_block_mask(scores: torch.Tensor, k_sel: int, *,
         s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     t_n = s.shape[-1]
     k_sel = max(1, min(int(k_sel), t_n))
-    idx = torch.topk(s, k_sel, dim=-1).indices
+    idx = top_k(s, k_sel)[1]
     m = torch.zeros_like(s, dtype=torch.float32).scatter_(-1, idx, 1.0)
     if allowed is not None:
         m = m * allowed.to(m.dtype)

@@ -147,7 +147,7 @@ def route_indices(params: Optional[RouterParams], q: torch.Tensor,
         s = torch.where(force, torch.full_like(s, float("inf")), s)
     if allowed is not None:
         s = torch.where(allowed, s, torch.full_like(s, 2.0 * masks.NEG_INF))
-    top_vals, idx = torch.topk(s, k_sel, dim=-1)
+    top_vals, idx = masks.top_k(s, k_sel)
     valid = top_vals > 1.5 * masks.NEG_INF
     idx = torch.where(valid, idx, idx[..., :1])
     idx, order = torch.sort(idx, dim=-1, stable=True)

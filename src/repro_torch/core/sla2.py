@@ -36,6 +36,7 @@ class SLA2Config:
     alpha_init: float = 0.9
     impl: str = "ref"               # 'ref' | 'gather' | 'kernel'
     q_chunk: int = 32               # gather mode: query blocks per step
+    fuse_branches: bool = False     # gather mode: one pass for both branches
 
     @property
     def block_q(self) -> int:
@@ -126,7 +127,7 @@ def sla2_attention(params: SLA2Params, q: torch.Tensor, k: torch.Tensor,
             a_tok, qf, kf, vf, idx, valid, block_q=rcfg.block_q,
             block_k=rcfg.block_k, causal=rcfg.causal,
             quant_bits=cfg.quant_bits, prefix_len=rcfg.prefix_len,
-            q_chunk=cfg.q_chunk)
+            q_chunk=cfg.q_chunk, fuse_branches=cfg.fuse_branches)
         o = o.reshape(b, h, n, vf.shape[-1])
         aux = {"idx": idx, "valid": valid}
     elif impl == "ref":

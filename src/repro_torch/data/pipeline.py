@@ -136,15 +136,23 @@ class Prefetcher:
 def make_dataset(model_cfg, seq_len: int, global_batch: int, *,
                  seed: int = 0, host_index: int = 0,
                  host_count: int = 1) -> SyntheticDataset:
-    """The synthetic stream for a model config.  Only the DiT is ported,
-    so only its ``dit`` stream is built from a config (the other kinds
-    are reached through ``DataConfig`` directly)."""
+    """The synthetic stream for a model config: ``dit`` for the DiT,
+    ``lm`` for the decoder-only LM (the ported families)."""
     from repro_torch.models import dit as D
-    if not isinstance(model_cfg, D.DiTConfig):
+    from repro_torch.models import transformer as T
+    if isinstance(model_cfg, D.DiTConfig):
+        cfg = DataConfig(seed=seed, global_batch=global_batch,
+                         seq_len=seq_len, kind="dit",
+                         d_model=model_cfg.d_model,
+                         c_latent=model_cfg.c_latent,
+                         n_text=model_cfg.n_text, host_index=host_index,
+                         host_count=host_count)
+    elif isinstance(model_cfg, T.ModelConfig):
+        cfg = DataConfig(seed=seed, global_batch=global_batch,
+                         seq_len=seq_len, kind="lm",
+                         vocab_size=model_cfg.vocab_size,
+                         host_index=host_index, host_count=host_count)
+    else:
         raise TypeError(f"config type {type(model_cfg).__name__} is not "
                         "ported")
-    return SyntheticDataset(DataConfig(
-        seed=seed, global_batch=global_batch, seq_len=seq_len, kind="dit",
-        d_model=model_cfg.d_model, c_latent=model_cfg.c_latent,
-        n_text=model_cfg.n_text, host_index=host_index,
-        host_count=host_count))
+    return SyntheticDataset(cfg)

@@ -1,12 +1,16 @@
 """Model handle: ``build_model(cfg)`` returns a ``Model`` with the surface
 the engines use: the video DiT (diffusion serving and training) and the
-dense decoder-only LM (paged serving).
+dense decoder-only LM (training, static and paged serving).
 
     model.init(seed, device="cuda")             -> params
     model.loss(params, batch)                   -> (loss, metrics)      DiT
     model.denoise(params, batch, caches)        -> (latents, caches)    DiT
     model.precompute_text_kv(params, text)      -> (k, v) per layer     DiT
     model.precompute_step_mods(params, t)       -> modulation tables    DiT
+    model.loss(params, batch)                   -> (loss, metrics)      LM
+    model.init_caches(batch, max_len)           -> static caches        LM
+    model.prefill(params, batch, caches)        -> (logits, caches)     LM
+    model.decode(params, batch, caches)         -> (logits, caches)     LM
     model.init_paged_caches(batch, num_pages)   -> page pools           LM
     model.prefill_chunk(params, batch, caches)  -> (logits, caches)     LM
     model.decode_paged(params, batch, caches)   -> (logits, caches)     LM
@@ -42,6 +46,11 @@ class Model:
     denoise: Optional[Callable] = None
     precompute_text_kv: Optional[Callable] = None
     precompute_step_mods: Optional[Callable] = None
+    # the static cache path (serve/engine.StaticWaveEngine,
+    # generate_sequential)
+    init_caches: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+    decode: Optional[Callable] = None
     # paged LM serving (serve/engine.ServeEngine)
     init_paged_caches: Optional[Callable] = None
     prefill_chunk: Optional[Callable] = None
@@ -105,6 +114,10 @@ def _lm_model(cfg: T.ModelConfig) -> Model:
         return T.init_paged_caches(cfg, batch, num_pages, dtype=dtype,
                                    device=resolve_device(device))
 
+    def init_caches(batch, max_len, *, dtype=torch.bfloat16, device="cuda"):
+        return T.init_caches(cfg, batch, max_len, dtype=dtype,
+                             device=resolve_device(device))
+
     draft = {}
     if cfg.mechanism == "sla2":
         draft = dict(
@@ -115,6 +128,10 @@ def _lm_model(cfg: T.ModelConfig) -> Model:
                 active=b["active"]))
     return Model(
         kind="lm", cfg=cfg, init=init,
+        loss=lambda p, b: T.lm_loss(p, cfg, b),
+        init_caches=init_caches,
+        prefill=lambda p, b, c: T.prefill(p, cfg, b["tokens"], c),
+        decode=lambda p, b, c: T.decode_step(p, cfg, b["token"], c),
         init_paged_caches=init_paged_caches,
         prefill_chunk=lambda p, b, c: T.prefill_chunk(
             p, cfg, b["tokens"], c, page_row=b["page_row"],

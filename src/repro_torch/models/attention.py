@@ -1,6 +1,18 @@
-"""Paged attention for LM serving: projections with qk-norm and RoPE, the
-page pool, chunked prefill, single-token decode and the speculative verify
-window with its commit and linear drafting.
+"""Model-level attention of the LM: projections with qk-norm and RoPE,
+GQA, the mechanism dispatch, the static decode cache, and paged serving
+(the page pool, chunked prefill, single-token decode and the speculative
+verify window with its commit and linear drafting).
+
+Mechanisms: ``full`` (dense softmax), ``sla2`` (the paper's operator,
+``core/sla2.py``), ``sla`` (the SLA baseline, ``O_s + O_l @ proj_l``) and
+``sparse_only`` (the sparse branch alone), the last two from
+``core/sla.py``.  ``attention_forward`` is the full-sequence path
+(training, static prefill): K/V are repeated to the query heads before
+the operator.  The static cache (``init_cache`` / ``prefill_cache`` /
+``decode_step``) keeps one shared length, a host int, for the whole
+batch; an SLA2 layer adds the pooled router key of every block and the
+linear totals over complete blocks, and its decode routes once per KV
+head (``_sla2_decode``).
 
 The K/V cache lives in a pool of physical pages of ``block_k`` tokens
 (``init_paged_cache``); a host-side page table maps (slot, logical block)
@@ -25,8 +37,8 @@ block state, which ``commit_paged_window`` folds in for the accepted
 prefix only.  ``linear_draft_state`` / ``linear_draft_attention`` draft
 through the linear branch alone, from a state that never enters the cache.
 
-'sla' and 'sparse_only' need the SLA baseline (``core/sla.py``, not
-ported) and raise.
+The paged pool of an 'sla' or 'sparse_only' layer is the dense one, and
+it serves through the dense entries (``PAGED_DISPATCH``).
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import masks as masklib
+from repro_torch.core import sla as slalib
 from repro_torch.core import sla2 as sla2lib
 from repro_torch.core.attention import phi
 from repro_torch.core.quant import true_div
@@ -48,15 +61,13 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import sla2_decode_paged as KP
 from repro_torch.models import layers as L
 
-PORTED_MECHANISMS = ("sla2", "full")
-_NOT_PORTED = ("mechanism {!r} is not ported: 'sla' and 'sparse_only' need "
-               "the SLA baseline (core/sla.py, ROADMAP queue 1); 'sla2' and "
-               "'full' serve")
+PORTED_MECHANISMS = ("full", "sla2", "sla", "sparse_only")
 
 
 def _check_mechanism(cfg) -> None:
     if cfg.mechanism not in PORTED_MECHANISMS:
-        raise NotImplementedError(_NOT_PORTED.format(cfg.mechanism))
+        raise ValueError(f"unknown mechanism {cfg.mechanism!r}; one of "
+                         f"{PORTED_MECHANISMS}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +78,8 @@ class AttentionConfig:
     num_heads: int
     num_kv_heads: int
     head_dim: int
-    mechanism: str = "full"            # sla2 | full are ported
+    mechanism: str = "full"            # full | sla2 | sla | sparse_only
+    causal: bool = True
     prefix_len: int = 0
     sliding_window: Optional[int] = None
     qk_norm: bool = False
@@ -75,34 +87,46 @@ class AttentionConfig:
     block_q: int = 128
     block_k: int = 64
     k_frac: float = 0.05
+    quant_bits: str = "int8"           # QAT of the full-sequence forward
+    sla2_impl: str = "kernel"          # kernel | gather | ref
     n_q_blocks: int = 32               # alpha table size at init
     paged_impl: str = "auto"           # fused | gather | auto
     decode_quant_bits: str = "none"    # QAT tiles of the decode kernel
     kv_quant: str = "none"             # page-pool storage: none|int8|fp8
 
-    def sla2_config(self) -> SLA2Config:
-        """The core SLA2 config view (what the params' init reads)."""
-        return SLA2Config(router=RouterConfig(
+    def router_config(self) -> RouterConfig:
+        """The router view: block sizes, top-k fraction, masks."""
+        return RouterConfig(
             block_q=self.block_q, block_k=self.block_k, k_frac=self.k_frac,
-            causal=True, prefix_len=self.prefix_len,
-            sliding_window=self.sliding_window))
+            causal=self.causal, prefix_len=self.prefix_len,
+            sliding_window=self.sliding_window)
+
+    def sla2_config(self) -> SLA2Config:
+        """The core SLA2 config view (router, QAT bits, impl); chunking and
+        branch fusion keep SLA2Config's defaults, as in the reference."""
+        return SLA2Config(router=self.router_config(),
+                          quant_bits=self.quant_bits, impl=self.sla2_impl)
 
 
 class AttentionParams(nn.Module):
-    """Projections (``nn.Linear``, weight (out, in)), qk-norms, and the
-    SLA2 router and alpha table (None for ``mechanism="full"``)."""
+    """Projections (``nn.Linear``, weight (out, in)), qk-norms, the SLA2
+    router and alpha table (``mechanism="sla2"``) and the SLA baseline's
+    ``proj_l`` (``mechanism="sla"``); None where the mechanism has none."""
 
-    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None, sla2=None):
+    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None, sla2=None,
+                 sla=None):
         super().__init__()
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
         self.q_norm, self.k_norm = q_norm, k_norm
         self.sla2 = sla2
+        self.sla = sla
 
 
 def init_attention(generator: torch.Generator, cfg: AttentionConfig,
                    dtype=torch.float32, device=None) -> AttentionParams:
     """One attention layer's params: QKV/output projections, the optional
-    qk-norms and, for SLA2, the router and alpha table."""
+    qk-norms and the mechanism's own (SLA2: router and alpha table; SLA:
+    the linear branch's output projection)."""
     _check_mechanism(cfg)
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     std = d ** -0.5
@@ -117,6 +141,9 @@ def init_attention(generator: torch.Generator, cfg: AttentionConfig,
         p.sla2 = sla2lib.init_sla2_params(
             generator, head_dim=dh, num_heads=h, n_q_blocks=cfg.n_q_blocks,
             cfg=cfg.sla2_config(), dtype=dtype, device=device)
+    elif cfg.mechanism == "sla":
+        p.sla = slalib.init_sla_params(generator, head_dim=dh, dtype=dtype,
+                                       device=device)
     return p
 
 
@@ -137,6 +164,253 @@ def _project_qkv(params: AttentionParams, cfg: AttentionConfig, x,
 
 def _repeat_kv(x, n_rep: int):
     return x if n_rep == 1 else torch.repeat_interleave(x, n_rep, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention
+# ---------------------------------------------------------------------------
+
+def _dense_masked_attention(q, k, v, cfg: AttentionConfig):
+    """Dense attention with causal / prefix-LM / sliding-window masks over
+    (B, H, N, D) q/k/v, in f32, cast to q's dtype."""
+    s = torch.einsum("bhnd,bhmd->bhnm", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(q.shape[-1])
+    n_q, n_kv = q.shape[-2], k.shape[-2]
+    mask = None
+    if cfg.causal:
+        mask = masklib.token_causal_mask(n_q, n_kv, 0, cfg.prefix_len,
+                                         device=q.device)
+    if cfg.sliding_window is not None:
+        qi = torch.arange(n_q, device=q.device)
+        kj = torch.arange(n_kv, device=q.device)
+        sw = kj[None, :] >= (qi[:, None] - cfg.sliding_window + 1)
+        if cfg.prefix_len:
+            sw = sw | (kj[None, :] < cfg.prefix_len)
+        mask = sw if mask is None else (mask & sw)
+    if mask is not None:
+        s = torch.where(mask, s, masklib.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    del s
+    return torch.einsum("bhnm,bhmd->bhnd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def _baseline_config(cfg: AttentionConfig) -> slalib.SLAConfig:
+    """The SLA baselines' config: the heuristic router, QAT bits of
+    ``sparse_only`` (``sla`` runs without QAT, as in the reference)."""
+    bits = cfg.quant_bits if cfg.mechanism == "sparse_only" else "none"
+    return slalib.SLAConfig(router=dataclasses.replace(
+        cfg.router_config(), learnable=False), quant_bits=bits)
+
+
+def _attend(params: AttentionParams, cfg: AttentionConfig, q, k, v):
+    """The mechanism over projected (B, N, H|Hkv, Dh) q/k/v: K/V repeated
+    to the query heads, then (B, N, H * Dh) through ``wo``."""
+    b, n = q.shape[:2]
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    q = q.transpose(1, 2)
+    k = _repeat_kv(k.transpose(1, 2), n_rep)
+    v = _repeat_kv(v.transpose(1, 2), n_rep)
+    if cfg.mechanism == "full":
+        o = _dense_masked_attention(q, k, v, cfg)
+    elif cfg.mechanism == "sla2":
+        o = sla2lib.sla2_attention(params.sla2, q, k, v, cfg.sla2_config())
+    elif cfg.mechanism == "sla":
+        o = slalib.sla_attention(params.sla, q, k, v, _baseline_config(cfg))
+    elif cfg.mechanism == "sparse_only":
+        o = slalib.sparse_only_attention(q, k, v, _baseline_config(cfg))
+    else:
+        raise ValueError(f"unknown mechanism {cfg.mechanism!r}")
+    return F.linear(o.transpose(1, 2).reshape(b, n, -1), params.wo.weight)
+
+
+def _positions(b: int, n: int, start: int, device) -> torch.Tensor:
+    return (torch.arange(n, device=device) + start)[None].expand(b, n)
+
+
+def attention_forward(params: AttentionParams, cfg: AttentionConfig, x,
+                      positions=None):
+    """Training / prefill full-sequence attention; x (B, N, d_model),
+    positions (B, N) (default 0..N-1)."""
+    b, n, _ = x.shape
+    if positions is None:
+        positions = _positions(b, n, 0, x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    return _attend(params, cfg, q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# The static decode cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: AttentionConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Block K/V cache of one layer, (B, Hkv, max_len, Dh) each, with the
+    shared ``length`` (a host int); SLA2 adds the pooled router key of
+    every block and the linear totals over complete blocks (the routed
+    blocks' own states are recomputed from the tiles the sparse branch
+    reads); its ``max_len`` must be a multiple of ``block_k``."""
+    _check_mechanism(cfg)
+    hkv, dh, bk = cfg.num_kv_heads, cfg.head_dim, cfg.block_k
+    if cfg.mechanism == "sla2" and max_len % bk:
+        raise ValueError(f"max_len {max_len} is not a multiple of "
+                         f"block_k {bk}")
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    cache = {"k": z((batch, hkv, max_len, dh), dtype),
+             "v": z((batch, hkv, max_len, dh), dtype), "length": 0}
+    if cfg.mechanism == "sla2":
+        cache.update(pooled_k=z((batch, hkv, max_len // bk, dh),
+                                torch.float32),
+                     h_tot=z((batch, hkv, dh, dh), torch.float32),
+                     z_tot=z((batch, hkv, dh), torch.float32))
+    return cache
+
+
+def prefill_cache(params: AttentionParams, cfg: AttentionConfig, x,
+                  cache: dict):
+    """Full-sequence attention over x (B, N, d_model) that also fills the
+    cache with its K/V (and the SLA2 block states; there N must be a
+    multiple of block_k).  Returns (out (B, N, d_model), cache), updated
+    in place."""
+    b, n, _ = x.shape
+    if (cfg.mechanism == "sla2" and n % cfg.block_k) \
+            or n > cache["k"].shape[2]:
+        raise ValueError(f"prefill of {n} tokens does not fit the cache "
+                         f"(blocks of {cfg.block_k}, "
+                         f"{cache['k'].shape[2]} positions)")
+    q, k, v = _project_qkv(params, cfg, x, _positions(b, n, 0, x.device))
+    out = _attend(params, cfg, q, k, v)
+    k_t, v_t = k.transpose(1, 2), v.transpose(1, 2)     # (B, Hkv, N, Dh)
+    cache["k"][:, :, :n] = k_t.to(cache["k"].dtype)
+    cache["v"][:, :, :n] = v_t.to(cache["v"].dtype)
+    cache["length"] = n
+    if cfg.mechanism == "sla2":
+        bk, hkv, dh = cfg.block_k, cfg.num_kv_heads, cfg.head_dim
+        kb = k_t.reshape(b, hkv, n // bk, bk, dh)
+        vb = v_t.reshape(b, hkv, n // bk, bk, dh)
+        kf = phi(kb)
+        h = torch.einsum("bhjkd,bhjke->bhjde", kf, vb.to(torch.float32))
+        cache["pooled_k"][:, :, :n // bk] = kb.to(torch.float32).mean(dim=-2)
+        cache["h_tot"] = h.sum(dim=2)
+        cache["z_tot"] = kf.sum(dim=-2).sum(dim=2)
+    return out, cache
+
+
+def decode_step(params: AttentionParams, cfg: AttentionConfig, x_t,
+                cache: dict):
+    """One-token decode for the whole batch at the shared length;
+    x_t (B, 1, d_model).  Returns (out (B, 1, d_model), cache), updated
+    in place."""
+    b = x_t.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    t = int(cache["length"])
+    max_len = cache["k"].shape[2]
+    if t >= max_len:
+        raise ValueError(f"the static cache is full ({max_len} positions)")
+    q, k_new, v_new = _project_qkv(params, cfg, x_t,
+                                   _positions(b, 1, t, x_t.device))
+    q = q.transpose(1, 2)                              # (B, H, 1, Dh)
+    cache["k"][:, :, t] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, :, t] = v_new[:, 0].to(cache["v"].dtype)
+    t_new = t + 1
+    cache["length"] = t_new
+    if cfg.mechanism == "sla2":
+        o = _sla2_decode(params, cfg, q, cache, t_new)
+    else:
+        n_rep = h // hkv
+        k_all = _repeat_kv(cache["k"], n_rep).to(q.dtype)
+        v_all = _repeat_kv(cache["v"], n_rep).to(q.dtype)
+        s = torch.einsum("bhqd,bhmd->bhqm", q.to(torch.float32),
+                         k_all.to(torch.float32)) / math.sqrt(dh)
+        pos_k = torch.arange(max_len, device=q.device)
+        vis = pos_k < t_new
+        if cfg.sliding_window is not None:
+            sw = pos_k >= (t_new - cfg.sliding_window)
+            if cfg.prefix_len:
+                sw = sw | (pos_k < cfg.prefix_len)
+            vis = vis & sw
+        s = torch.where(vis, s, masklib.NEG_INF)
+        o = torch.einsum("bhqm,bhmd->bhqd", torch.softmax(s, dim=-1),
+                         v_all.to(torch.float32))
+    o = o.to(x_t.dtype).transpose(1, 2).reshape(b, 1, h * dh)
+    return F.linear(o, params.wo.weight), cache
+
+
+def _sla2_decode(params: AttentionParams, cfg: AttentionConfig, q, cache,
+                 t_new: int):
+    """SLA2 decode over the static cache: the stats of the block holding
+    the new token, group-shared routing (one block set per KV head from
+    the mean of its query heads' scores over the pooled keys; the current
+    block forced), the sparse branch over the K_sel routed blocks and the
+    linear complement from the totals minus the routed complete blocks.
+    q (B, H, 1, Dh) -> (B, H, 1, Dh) f32."""
+    sp = params.sla2
+    b, h, _, dh = q.shape
+    hkv, bk = cfg.num_kv_heads, cfg.block_k
+    n_rep = h // hkv
+    t_n = cache["k"].shape[2] // bk
+    sq = math.sqrt(dh)
+
+    # the block holding the new token: its pooled key, and its linear
+    # state into the totals once it is complete
+    cur = (t_new - 1) // bk
+    kblk = cache["k"][:, :, cur * bk:(cur + 1) * bk].to(torch.float32)
+    vblk = cache["v"][:, :, cur * bk:(cur + 1) * bk].to(torch.float32)
+    w = ((cur * bk + torch.arange(bk, device=q.device)) < t_new).to(
+        torch.float32)[None, None, :, None]
+    cache["pooled_k"][:, :, cur] = ((kblk * w).sum(dim=-2)
+                                    / torch.clamp(w.sum(dim=-2), min=1.0))
+    completed = t_new % bk == 0
+    if completed:
+        kf_cur = phi(kblk) * w
+        cache["h_tot"] = cache["h_tot"] + torch.einsum(
+            "bhkd,bhke->bhde", kf_cur, vblk * w)
+        cache["z_tot"] = cache["z_tot"] + kf_cur.sum(dim=-2)
+
+    # group-shared routing: one block set per KV head
+    qr = q[:, :, 0].to(torch.float32)                  # (B, H, Dh)
+    pk = cache["pooled_k"].to(torch.float32)           # (B, Hkv, T_n, Dh)
+    if sp.router is not None:
+        qr = qr @ sp.router.proj_q.weight.to(torch.float32).T
+        pk = pk @ sp.router.proj_k.weight.to(torch.float32).T
+    qr_g = qr.reshape(b, hkv, n_rep, dh).mean(dim=2)
+    scores = torch.einsum("bhd,bhtd->bht", qr_g, pk) / sq
+    blk = torch.arange(t_n, device=q.device)
+    scores = torch.where(blk <= cur, scores, masklib.NEG_INF)
+    scores = torch.where(blk == cur, float("inf"), scores)
+    k_sel = max(1, round(cfg.k_frac * t_n))
+    top_vals, idx = torch.topk(scores, k_sel, dim=-1)  # (B, Hkv, K_sel)
+    valid = top_vals > masklib.NEG_INF * 0.5
+
+    # sparse branch over the routed blocks, at KV-head width
+    gather = lambda c: torch.gather(
+        c.reshape(b, hkv, t_n, bk, dh), 2,
+        idx[..., None, None].expand(-1, -1, -1, bk, dh)).to(torch.float32)
+    k_sel_b, v_sel_b = gather(cache["k"]), gather(cache["v"])
+    q_g = q[:, :, 0].to(torch.float32).reshape(b, hkv, n_rep, dh)
+    s = torch.einsum("bhgd,bhjkd->bhgjk", q_g, k_sel_b) / sq
+    pos = idx[..., None] * bk + torch.arange(bk, device=q.device)
+    vis = (pos < t_new) & valid[..., None]             # (B, Hkv, K_sel, bk)
+    s = torch.where(vis[:, :, None], s, masklib.NEG_INF)
+    p = torch.softmax(s.reshape(b, hkv, n_rep, -1), dim=-1).reshape(s.shape)
+    o_s = torch.einsum("bhgjk,bhjkd->bhgd", p, v_sel_b)
+
+    # linear branch: the totals minus the routed complete blocks
+    sel_complete = valid & (idx < cur + int(completed))
+    qfeat = phi(q[:, :, 0]).reshape(b, hkv, n_rep, dh)
+    ls = torch.einsum("bhgd,bhjkd->bhgjk", qfeat, phi(k_sel_b))
+    ls = ls * sel_complete[:, :, None, :, None].to(torch.float32)
+    sub_num = torch.einsum("bhgjk,bhjkd->bhgd", ls, v_sel_b)
+    den_tot = torch.einsum("bhgd,bhd->bhg", qfeat, cache["z_tot"])
+    num = torch.einsum("bhgd,bhde->bhge", qfeat, cache["h_tot"]) - sub_num
+    den = den_tot - ls.sum(dim=(-1, -2))
+    den = torch.where(den > 1e-4 * den_tot + 1e-12, den, 0.0)[..., None]
+    o_l = torch.where(den > 0, num / torch.clamp(den, min=1e-12), 0.0)
+
+    a_last = torch.sigmoid(_alpha_last(sp, h)).reshape(1, hkv, n_rep, 1)
+    a_eff = torch.where(den > 0, a_last, 1.0)
+    o = a_eff * o_s + (1.0 - a_eff) * o_l              # (B, Hkv, n_rep, Dh)
+    return o.reshape(b, h, dh)[:, :, None, :]
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,6 @@ With ``remat == "full"`` and grad enabled, every block runs under
 ``torch.utils.checkpoint``: only its input is kept, and the backward
 re-runs the block's forward (so the sparse-branch forward kernel runs
 twice per layer and step, as under ``jax.checkpoint``).
-
-The ``sla`` / ``sparse_only`` mechanisms wait for ``core/sla.py``.
 """
 from __future__ import annotations
 
@@ -32,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import sla as slalib
 from repro_torch.core import sla2 as sla2lib
 from repro_torch.core.router import RouterConfig
 from repro_torch.core.sla2 import SLA2Config
@@ -54,13 +53,14 @@ class DiTConfig:
     d_ff: int = 8960
     c_latent: int = 16
     n_text: int = 77
-    mechanism: str = "sla2"         # sla2 | full
+    mechanism: str = "sla2"         # sla2 | sla | sparse_only | full
     block_q: int = 128
     block_k: int = 64
     k_frac: float = 0.05
     quant_bits: str = "int8"
     sla2_impl: str = "gather"
     q_chunk: int = 16
+    fuse_branches: bool = False     # gather mode: one pass for both branches
     t_emb_dim: int = 256
     remat: str = "full"             # full | none (training only)
     dtype: str = "bfloat16"
@@ -80,7 +80,8 @@ class DiTConfig:
         """SLA2Config carrying this model's routing, impl and QAT bits."""
         return SLA2Config(router=self.router_config(),
                           quant_bits=self.quant_bits, impl=self.sla2_impl,
-                          q_chunk=self.q_chunk)
+                          q_chunk=self.q_chunk,
+                          fuse_branches=self.fuse_branches)
 
 
 # ---------------------------------------------------------------------------
@@ -108,12 +109,15 @@ class DiTBlock(nn.Module):
         self.mlp = L.init_mlp(g, d, cfg.d_ff, dtype=dt, device=device)
         # adaLN-zero: 6 modulation vectors from the t-embedding, zero init
         self.ada = L.zero_linear(cfg.t_emb_dim, 6 * d, dt, device)
-        self.sla2 = None
+        self.sla2 = self.sla = None
         if cfg.mechanism == "sla2":
             self.sla2 = sla2lib.init_sla2_params(
                 g, head_dim=dh, num_heads=h,
                 n_q_blocks=max(1, cfg.max_target_len // cfg.block_q),
                 cfg=cfg.sla2_config(), dtype=dt, device=device)
+        elif cfg.mechanism == "sla":
+            self.sla = slalib.init_sla_params(g, head_dim=dh, dtype=dt,
+                                              device=device)
 
 
 class DiTParams(nn.Module):
@@ -164,6 +168,21 @@ def _attn_sla2(bp: DiTBlock, cfg: DiTConfig, q, k, v):
     return sla2lib.sla2_attention(bp.sla2, q, k, v, cfg.sla2_config())
 
 
+def _attn_sla(bp: DiTBlock, cfg: DiTConfig, q, k, v):
+    """SLA baseline: the heuristic router, no alpha, ``O_s + O_l @ proj_l``
+    without QAT (the reference's SLAConfig default)."""
+    scfg = slalib.SLAConfig(router=dataclasses.replace(
+        cfg.router_config(), learnable=False))
+    return slalib.sla_attention(bp.sla, q, k, v, scfg)
+
+
+def _attn_sparse_only(bp: DiTBlock, cfg: DiTConfig, q, k, v):
+    """VSA / VMoBA-like baseline: the sparse branch alone, with QAT."""
+    scfg = slalib.SLAConfig(router=dataclasses.replace(
+        cfg.router_config(), learnable=False), quant_bits=cfg.quant_bits)
+    return slalib.sparse_only_attention(q, k, v, scfg)
+
+
 def _attn_full(bp: DiTBlock, cfg: DiTConfig, q, k, v):
     """Dense bidirectional softmax attention (the O(N^2) baseline)."""
     s = torch.einsum("bhnd,bhmd->bhnm", q.to(torch.float32),
@@ -174,7 +193,8 @@ def _attn_full(bp: DiTBlock, cfg: DiTConfig, q, k, v):
 
 
 # mechanism -> self-attention math over (B, H, N, Dh) q/k/v
-MECHANISM_ATTENTION = {"sla2": _attn_sla2, "full": _attn_full}
+MECHANISM_ATTENTION = {"sla2": _attn_sla2, "sla": _attn_sla,
+                       "sparse_only": _attn_sparse_only, "full": _attn_full}
 
 
 def _heads(x, w, h, dh):

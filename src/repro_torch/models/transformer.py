@@ -1,9 +1,17 @@
 """The decoder-only LM of the port: the ``dense`` layer kind (pre-norm
-attention + gated SiLU MLP) in an ``nn.ModuleList``, with its paged
-serving path (chunked prefill, per-slot decode, swap of one slot's state)
-and speculative decoding (the verify window, its commit, and the SLA2
-linear drafter's state and step).  The reference stacks its layers into
-scanned ``groups``; ``convert.lm_params_from_numpy`` unstacks them.
+attention + gated SiLU MLP) in an ``nn.ModuleList``, with the
+full-sequence forward and the next-token loss (training), the static
+cache path (``prefill`` / ``decode_step``: one shared length for the
+batch), its paged serving path (chunked prefill, per-slot decode, swap of
+one slot's state) and speculative decoding (the verify window, its
+commit, and the SLA2 linear drafter's state and step).  The reference
+stacks its layers into scanned ``groups``; ``convert.lm_params_from_numpy``
+unstacks them.
+
+With ``remat == "full"`` and grad enabled, every layer and every loss
+chunk runs under ``torch.utils.checkpoint``: the backward re-runs the
+layer's forward, so the sparse-branch forward kernel runs twice per
+layer and microbatch, as under ``jax.checkpoint``.
 
 MoE, MLA and recurrent layers (``moe``, ``mla``, ``ssm``, other
 ``layer_kinds``) are not ported yet (ROADMAP) and raise.
@@ -16,6 +24,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -26,9 +35,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One decoder-only architecture: geometry, attention mechanism
-    ('sla2' or 'full') and masks, SLA2 knobs and the paged-serving
-    switches (the fields of the reference's ModelConfig that paged serving
-    of a stack of dense layers reads; the training knobs and those of
+    ('full', 'sla2', 'sla', 'sparse_only') and masks, SLA2 knobs, the
+    paged-serving switches and the training knobs (the fields of the
+    reference's ModelConfig that a stack of dense layers reads; those of
     other families wait for their slices)."""
     name: str = "model"
     n_layers: int = 2
@@ -41,6 +50,7 @@ class ModelConfig:
     layer_kinds: tuple = ("dense",)
     first_kinds: tuple = ()
     mechanism: str = "sla2"
+    causal: bool = True
     sliding_window: Optional[int] = None
     qk_norm: bool = False
     prefix_len: int = 0
@@ -49,14 +59,21 @@ class ModelConfig:
     block_q: int = 128
     block_k: int = 64
     k_frac: float = 0.05
+    quant_bits: str = "int8"           # QAT of the full-sequence forward
+    sla2_impl: str = "gather"          # kernel | gather | ref
+    q_chunk: int = 16                  # gather mode: query blocks per step
+    fuse_branches: bool = False        # gather mode: one pass, both branches
     paged_impl: str = "auto"           # fused | gather | auto
     decode_quant_bits: str = "none"    # QAT tiles of the decode kernel
     kv_quant: str = "none"             # page-pool storage: none|int8|fp8
     moe: Optional[Any] = None
     mla: Optional[Any] = None
     ssm: Optional[Any] = None
+    remat: str = "full"                # full | none (training only)
     dtype: str = "bfloat16"
     max_target_len: int = 8192         # sizes the alpha table at init
+    loss_chunk: int = 1024             # CE computed per sequence chunk
+    z_loss: float = 1e-4
 
     @property
     def param_dtype(self) -> torch.dtype:
@@ -68,13 +85,24 @@ class ModelConfig:
         return A.AttentionConfig(
             d_model=self.d_model, num_heads=self.num_heads,
             num_kv_heads=self.num_kv_heads, head_dim=self.head_dim,
-            mechanism=self.mechanism, prefix_len=self.prefix_len,
+            mechanism=self.mechanism, causal=self.causal,
+            prefix_len=self.prefix_len,
             sliding_window=self.sliding_window, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta, block_q=self.block_q,
             block_k=self.block_k, k_frac=self.k_frac,
+            quant_bits=self.quant_bits, sla2_impl=self.sla2_impl,
             n_q_blocks=max(1, self.max_target_len // self.block_q),
             paged_impl=self.paged_impl,
             decode_quant_bits=self.decode_quant_bits, kv_quant=self.kv_quant)
+
+    def sla2_config(self):
+        """The core SLA2 config view, with the model-level chunking and
+        branch-fusion knobs applied.  (As in the reference, the attention
+        layers run ``attention_config().sla2_config()``, which keeps
+        SLA2Config's defaults for both.)"""
+        return dataclasses.replace(self.attention_config().sla2_config(),
+                                   q_chunk=self.q_chunk,
+                                   fuse_branches=self.fuse_branches)
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -152,6 +180,116 @@ def _embed(params: LMParams, cfg: ModelConfig, tokens):
 
 
 # ---------------------------------------------------------------------------
+# Full-sequence forward and the next-token loss
+# ---------------------------------------------------------------------------
+
+def _layer_forward(lp: LayerParams, acfg: A.AttentionConfig, x, positions):
+    x = x + A.attention_forward(lp.attn, acfg, L.rmsnorm(lp.ln1, x),
+                                positions)
+    return x + L.gated_mlp(lp.mlp, L.rmsnorm(lp.ln2, x))
+
+
+def forward(params: LMParams, cfg: ModelConfig, tokens):
+    """Full-sequence forward of tokens (B, N).  Returns (final-normed
+    hidden (B, N, d_model), aux loss 0: dense layers have none)."""
+    acfg = cfg.attention_config()
+    x = _embed(params, cfg, tokens)
+    b, n, _ = x.shape
+    positions = torch.arange(n, device=x.device)[None].expand(b, n)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for lp in params.layers:
+        if remat:
+            x = checkpoint(_layer_forward, lp, acfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _layer_forward(lp, acfg, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rmsnorm(params.final_norm, x), aux
+
+
+def _chunk_loss(h, lab, head, z_loss: float):
+    """(CE + z-loss summed over the valid labels, their count) of one
+    chunk; head is the f32 (vocab, d_model) unembedding."""
+    lg = torch.matmul(h.to(torch.float32), head.T)
+    lse = torch.logsumexp(lg, dim=-1)
+    tgt = torch.gather(lg, -1, torch.clamp(lab, min=0).long()[..., None])
+    valid = (lab >= 0).to(torch.float32)
+    ce = (lse - tgt[..., 0]) * valid
+    zl = z_loss * lse ** 2 * valid
+    return (ce + zl).sum(), valid.sum()
+
+
+def lm_loss(params: LMParams, cfg: ModelConfig, batch: dict):
+    """Next-token cross-entropy with z-loss, computed over chunks of
+    ``loss_chunk`` positions (the last one padded with ignored labels).
+    batch: tokens (B, N), labels (B, N) with -1 = ignore.  Returns (loss,
+    {"ce", "aux", "tokens"})."""
+    hidden, aux = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"]
+    b, n, _ = hidden.shape
+    c = min(cfg.loss_chunk, n)
+    pad = (-n) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    w = params.embed if params.lm_head is None else params.lm_head.weight
+    head = w.to(torch.float32)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    sums, counts = [], []
+    for i in range(0, n + pad, c):
+        args = (hidden[:, i:i + c], labels[:, i:i + c], head, cfg.z_loss)
+        s, k = (checkpoint(_chunk_loss, *args, use_reentrant=False)
+                if remat else _chunk_loss(*args))
+        sums.append(s)
+        counts.append(k)
+    total = torch.stack(sums).sum()
+    n_valid = torch.clamp(torch.stack(counts).sum(), min=1.0)
+    ce = total / n_valid
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": n_valid}
+
+
+# ---------------------------------------------------------------------------
+# The static cache: one shared length for the batch
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                dtype=torch.bfloat16, device=None) -> dict:
+    """Static decode caches of every layer: ``{"layers": [cache of layer
+    i]}`` (``attention.init_cache``); max_len a multiple of block_k."""
+    check_ported(cfg)
+    acfg = cfg.attention_config()
+    return {"layers": [A.init_cache(acfg, batch, max_len, dtype, device)
+                       for _ in range(cfg.n_layers)]}
+
+
+def prefill(params: LMParams, cfg: ModelConfig, tokens, caches):
+    """Run the prompts (B, N) through the model, filling every cache
+    (N a multiple of block_k).  Returns (logits of the last position
+    (B, V), caches)."""
+    acfg = cfg.attention_config()
+    x = _embed(params, cfg, tokens)
+
+    def mix_fn(ap, h, lc):
+        return A.prefill_cache(ap, acfg, h, lc)
+
+    x, caches = _stack(params, cfg, x, caches, mix_fn)
+    return logits_from_hidden(params, cfg, x[:, -1]), caches
+
+
+def decode_step(params: LMParams, cfg: ModelConfig, token_t, caches):
+    """One decode step of the batch at the caches' shared length; token_t
+    (B,) int.  Returns (logits (B, V), caches)."""
+    acfg = cfg.attention_config()
+    x = _embed(params, cfg, token_t[:, None])
+
+    def mix_fn(ap, h, lc):
+        return A.decode_step(ap, acfg, h, lc)
+
+    x, caches = _stack(params, cfg, x, caches, mix_fn)
+    return logits_from_hidden(params, cfg, x)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
 # Paged caches, chunked prefill, per-slot decode
 # ---------------------------------------------------------------------------
 
@@ -196,7 +334,7 @@ def swap_in_slot(cfg: ModelConfig, caches: dict, page_row, slot: int,
     return caches
 
 
-def _paged_stack(params: LMParams, cfg: ModelConfig, x, caches, mix_fn):
+def _stack(params: LMParams, cfg: ModelConfig, x, caches, mix_fn):
     """Run the layers with ``mix_fn(layer_params, h, layer_state)`` ->
     (y, layer_state) as the attention body; returns (final-normed hidden,
     {"layers": the returned states})."""
@@ -221,7 +359,7 @@ def prefill_chunk(params: LMParams, cfg: ModelConfig, tokens, caches, *,
                                      offset=offset, chunk_len=chunk_len,
                                      slot=slot)
 
-    x, caches = _paged_stack(params, cfg, x, caches, mix_fn)
+    x, caches = _stack(params, cfg, x, caches, mix_fn)
     last = x[:, int(chunk_len) - 1]
     return logits_from_hidden(params, cfg, last), caches
 
@@ -238,7 +376,7 @@ def decode_paged(params: LMParams, cfg: ModelConfig, token_t, caches, *,
         return A.decode_step_paged(ap, acfg, h, lc, page_table=page_table,
                                    lengths=lengths, active=active)
 
-    x, caches = _paged_stack(params, cfg, x, caches, mix_fn)
+    x, caches = _stack(params, cfg, x, caches, mix_fn)
     return logits_from_hidden(params, cfg, x)[:, 0], caches
 
 
@@ -261,7 +399,7 @@ def decode_verify(params: LMParams, cfg: ModelConfig, tokens_w, caches, *,
                                      lengths=lengths, active=active,
                                      window_len=window_len)
 
-    x, caches = _paged_stack(params, cfg, x, caches, mix_fn)
+    x, caches = _stack(params, cfg, x, caches, mix_fn)
     return logits_from_hidden(params, cfg, x), caches
 
 
@@ -298,5 +436,5 @@ def draft_step(params: LMParams, cfg: ModelConfig, token_t, states, *,
         return A.linear_draft_attention(ap, acfg, h, st, positions=positions,
                                         active=active)
 
-    x, states = _paged_stack(params, cfg, x, states, mix_fn)
+    x, states = _stack(params, cfg, x, states, mix_fn)
     return logits_from_hidden(params, cfg, x)[:, 0], states

@@ -163,11 +163,10 @@ def _check_request(req: VideoRequest, mcfg, cfg: DiffusionEngineConfig):
 
 def _check_params(model, params, device):
     mcfg = model.cfg
-    if mcfg.mechanism == "sla2" and params.blocks[0].sla2 is None:
-        raise ValueError("mechanism='sla2' needs the blocks' sla2 params; "
-                         "init the model with that mechanism")
-    if mcfg.mechanism not in ("sla2", "full"):
-        raise ValueError(f"mechanism {mcfg.mechanism!r} is not ported")
+    need = {"sla2": "sla2", "sla": "sla"}.get(mcfg.mechanism)
+    if need and getattr(params.blocks[0], need) is None:
+        raise ValueError(f"mechanism={mcfg.mechanism!r} needs the blocks' "
+                         f"{need} params; init the model with that mechanism")
     pdev = next(params.parameters()).device
     if pdev != device and not (pdev.type == device.type == "cuda"
                                and device.index is None):

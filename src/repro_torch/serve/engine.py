@@ -28,8 +28,14 @@ back.  Greedy sampling is an argmax; with ``temperature > 0`` the Gumbel
 noise comes from the engine's numpy generator, as in the reference, so
 both engines draw the same tokens.
 
+``StaticWaveEngine`` is the generation-wave baseline over the static
+cache (one shared length: a wave is admitted only when every slot is
+idle, its prompts left-padded with token 0 to one length, and drained
+before the next), and ``generate_sequential`` the unbatched greedy oracle
+on the same path.
+
 Not ported yet (ROADMAP): the prefix cache and sharded serving raise
-``ValueError``; ``StaticWaveEngine`` and ``generate_sequential`` wait.
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -834,3 +840,158 @@ class ServeEngine:
                 f"{len(self._slots)} active slot(s) and {len(self._queue)} "
                 f"waiting request(s)")
         return self.completed
+
+
+# ===========================================================================
+# Static generation-wave engine (the paged engine's baseline)
+# ===========================================================================
+
+class StaticWaveEngine:
+    """Static-shape batched decode over ``Model.prefill`` / ``Model.decode``
+    on ``device`` (``cuda`` unless the caller asks for the CPU).
+
+    All slots share one cache with a single sequence offset, so requests
+    join only at sequence start: a wave is admitted when every slot is
+    idle, each prompt left-padded with token 0 (the pad tokens stay
+    visible to attention, so outputs depend on the wave's composition) to
+    one length, a multiple of ``block_q``, and the wave drains before the
+    next admission.  The caches are bf16, as the reference's."""
+
+    def __init__(self, model, ecfg: EngineConfig, device="cuda"):
+        if model.prefill is None:
+            raise ValueError(f"{model.kind} has no static cache path")
+        self.model = model
+        self.cfg = ecfg
+        self.device = resolve_device(device)
+        self.params = None
+        self._queue: list = []
+        self._active: dict = {}                   # slot -> request
+        self._tokens = np.zeros((ecfg.max_slots,), np.int32)
+        self._budget = np.zeros((ecfg.max_slots,), np.int32)
+        self.caches = None
+        self._rng = np.random.default_rng(ecfg.seed)
+        self.completed: list = []
+        self.stats = {"engine_steps": 0}
+
+    def load(self, params) -> None:
+        """Install the params (the caches are made anew for every wave)."""
+        self.params = params
+        self.caches = None
+
+    def _padded(self, n: int) -> int:
+        bq = self.model.cfg.block_q
+        return max(bq, -(-n // bq) * bq)
+
+    def submit(self, req: Request) -> None:
+        """Validate and queue a request for the next wave."""
+        n = len(req.prompt)
+        if n == 0:
+            raise ValueError(f"request {req.uid}: empty prompt")
+        n_pad = self._padded(n)
+        if n_pad + req.max_new_tokens > self.cfg.max_len:
+            raise ValueError(
+                f"request {req.uid}: padded prompt {n_pad} + "
+                f"{req.max_new_tokens} new tokens exceed max_len "
+                f"{self.cfg.max_len}")
+        req.output = []
+        self._queue.append(req)
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        return _sample_tokens(logits, self.cfg.temperature, self._rng)
+
+    def _admit(self) -> None:
+        """Admit a wave of up to max_slots queued requests, cut FCFS where
+        the shared padding would push a member's decode past max_len, and
+        prefill it jointly."""
+        if self._active or not self._queue:
+            return
+        wave: list = []
+        n_pad = 0
+        while self._queue and len(wave) < self.cfg.max_slots:
+            cand_pad = max(n_pad, self._padded(len(self._queue[0].prompt)))
+            if any(cand_pad + r.max_new_tokens > self.cfg.max_len
+                   for r in wave + [self._queue[0]]):
+                break
+            n_pad = cand_pad
+            wave.append(self._queue.pop(0))
+        prompt = np.zeros((self.cfg.max_slots, n_pad), np.int32)
+        for slot, req in enumerate(wave):
+            prompt[slot, n_pad - len(req.prompt):] = req.prompt
+        self.caches = None                      # free the last wave's first
+        self.caches = self.model.init_caches(
+            self.cfg.max_slots, self.cfg.max_len, device=self.device)
+        with torch.inference_mode():
+            logits, self.caches = self.model.prefill(
+                self.params, {"tokens": torch.as_tensor(
+                    prompt, device=self.device)}, self.caches)
+        tok = self._sample(logits)
+        for slot, req in enumerate(wave):
+            t = int(tok[slot])
+            req.output.append(t)
+            if req.max_new_tokens <= 1 or (req.eos_id is not None
+                                           and t == req.eos_id):
+                self.completed.append(req)
+                continue
+            self._tokens[slot] = t
+            self._budget[slot] = req.max_new_tokens - 1
+            self._active[slot] = req
+
+    def step(self) -> int:
+        """Admit a wave if idle, then one decode step of every slot.
+        Returns the number of active slots."""
+        if self._active or self._queue:
+            self.stats["engine_steps"] += 1
+        self._admit()
+        if not self._active:
+            return 0
+        with torch.inference_mode():
+            logits, self.caches = self.model.decode(
+                self.params, {"token": torch.as_tensor(
+                    self._tokens, device=self.device)}, self.caches)
+        tok = self._sample(logits)
+        done = []
+        for slot, req in self._active.items():
+            t = int(tok[slot])
+            req.output.append(t)
+            self._budget[slot] -= 1
+            if self._budget[slot] <= 0 or (req.eos_id is not None
+                                           and t == req.eos_id):
+                done.append(slot)
+            else:
+                self._tokens[slot] = t
+        for slot in done:
+            self.completed.append(self._active.pop(slot))
+        return len(self._active)
+
+    def run_to_completion(self, max_steps: int = 10_000) -> list:
+        """Step until every submitted request has drained (or max_steps)."""
+        for _ in range(max_steps):
+            if self.step() == 0 and not self._queue:
+                break
+        return self.completed
+
+
+def generate_sequential(model, params, prompt: np.ndarray, *,
+                        max_new_tokens: int, max_len: int,
+                        eos_id: Optional[int] = None, cache_dtype=None,
+                        device="cuda") -> list:
+    """Unbatched greedy decode through the static cache: one
+    ``model.prefill`` over the whole prompt, then ``model.decode`` a token
+    at a time, on ``device``.  ``cache_dtype`` ('float32' | 'bfloat16',
+    default bfloat16) sets the cache's element type: pass 'float32' with
+    ``EngineConfig(page_dtype='float32')`` so that the paged engine and
+    this oracle store the same values."""
+    dev = resolve_device(device)
+    dtype = _POOL_DTYPES[cache_dtype or "bfloat16"]
+    caches = model.init_caches(1, max_len, dtype=dtype, device=dev)
+    with torch.inference_mode():
+        logits, caches = model.prefill(
+            params, {"tokens": torch.as_tensor(prompt[None], device=dev)},
+            caches)
+        out = [int(torch.argmax(logits[0]))]
+        while len(out) < max_new_tokens and out[-1] != eos_id:
+            logits, caches = model.decode(
+                params, {"token": torch.tensor([out[-1]], dtype=torch.int32,
+                                               device=dev)}, caches)
+            out.append(int(torch.argmax(logits[0])))
+    return out

@@ -73,7 +73,8 @@ def _force_hot(idx, valid, hot):
     ((2, 512, 64, 64, 32), True, 0, 0.5, None),
     ((2, 4096, 128, 128, 64), False, 0, 0.05, None),    # the main tiling
     ((2, 8192, 128, 128, 64), False, 0, 0.05, 7),       # a hot kv block
-    ((2, 1024, 64, 64, 32), True, 0, 0.25, 3)])
+    ((2, 1024, 64, 64, 32), True, 0, 0.25, 3),
+    ((10, 2048, 128, 128, 64), True, 0, 0.05, 0)])   # LM: hot early block
 def test_bwd_kernels_match_plain(card, shape, causal, prefix_len, k_frac,
                                  hot, dtype):
     q, k, v, do, idx, valid = _case(card, shape, getattr(torch, dtype),
@@ -166,6 +167,33 @@ def test_fwd_int8_prepass_and_ring_match_plain(card, shape, hot):
 
 
 BOUND = {"none": 2e-5, "int8": 1e-3, "fp8": 1e-2}
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_causal_gqa_fwd_at_the_lm_tiling(card, quant):
+    """The causal forward as the LM runs it: K/V of 2 KV heads repeated to
+    10 query heads (BH 10, each K/V tile 5 times over), bq 128 / bk 64,
+    routed with the forced diagonal (two kv blocks per query block)."""
+    n, d = 2048, 128
+    q = (torch.randn(1, 10, n, d, generator=card, device="cuda") * 0.5
+         ).to(torch.bfloat16)
+    k, v = ((torch.randn(1, 2, n, d, generator=card, device="cuda") * 0.5)
+            .to(torch.bfloat16).repeat_interleave(5, dim=1) for _ in range(2))
+    q, k, v = (x.reshape(10, n, d).contiguous() for x in (q, k, v))
+    idx, valid = R.route_indices(None, q, k, R.RouterConfig(
+        block_q=128, block_k=64, k_frac=0.05, causal=True))
+    valid = valid.to(torch.int32)
+    # query block 0 sees kv blocks 0 and 1 alone, both forced in
+    assert idx.shape[-1] == 2 and idx[:, 0].tolist() == [[0, 1]] * 10
+    if quant != "none":
+        k = smooth_k(k).contiguous()
+    kw = dict(block_q=128, block_k=64, causal=True, quant_bits=quant)
+    o, lse = sparse_flash_fwd(q, k, v, idx, valid, **kw)
+    torch.cuda.synchronize()
+    po, pl = sparse_flash_fwd_plain(q, k, v, idx, valid, **kw)
+    assert bool(torch.isfinite(o).all())
+    assert _rel(o, po) <= max(BOUND[quant], 2 ** -7)
+    assert float((lse - pl).abs().max()) < 1e-3
 
 
 @pytest.mark.parametrize("quant", ["none", "int8", "fp8"])

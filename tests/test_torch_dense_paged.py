@@ -174,8 +174,11 @@ def test_full_layer_has_only_a_kv_pool():
     assert sorted(tcache) == ["k_pages", "k_scale", "v_pages", "v_scale"]
     fresh = TA.init_paged_cache(tcfg, 5, 2)
     assert sorted(fresh) == sorted(tcache)
-    with pytest.raises(NotImplementedError, match="core/sla.py"):
-        TA.init_paged_cache(dataclasses.replace(tcfg, mechanism="sla"), 5, 2)
+    for mech in ("sla", "sparse_only"):       # the dense pool
+        pool = TA.init_paged_cache(dataclasses.replace(tcfg, mechanism=mech),
+                                   5, 2)
+        assert {k: v.shape for k, v in pool.items()} == {
+            k: v.shape for k, v in fresh.items()}
 
 
 @pytest.mark.parametrize("impl,window,kv_quant", [

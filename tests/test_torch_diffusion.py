@@ -117,9 +117,13 @@ def test_engine_validation_and_device(models):
     with pytest.raises(ValueError, match="multiple"):
         DS.DiffusionEngine(model, params, _ecfg(n_latent=N_LAT + 1),
                            device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="needs the blocks' sla params"):
         DS.DiffusionEngine(model, params, _ecfg(mechanism="sla"),
                            device="cpu")
+    sla = build_model(smoke_config(mechanism="sla"))
+    eng = DS.DiffusionEngine(sla, sla.init(0, device="cpu"),
+                             _ecfg(mechanism="sla"), device="cpu")
+    assert eng.model.cfg.mechanism == "sla"
 
 
 def test_cuda_device_never_falls_back(models, monkeypatch):

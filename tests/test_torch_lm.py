@@ -261,8 +261,15 @@ def test_dispatch_and_what_is_not_ported(ref):
     with pytest.raises(NotImplementedError, match="not a paged kernel"):
         TA.fused_entry_fn("dense_decode_gather")
     for mech in ("sla", "sparse_only"):
-        with pytest.raises(NotImplementedError, match="core/sla.py"):
-            TA.init_attention(torch.Generator(), dataclasses.replace(
-                acfg, mechanism=mech))
+        p = TA.init_attention(torch.Generator(), dataclasses.replace(
+            acfg, mechanism=mech))
+        assert p.sla2 is None
+        if mech == "sla":
+            assert p.sla.proj_l.shape == (acfg.head_dim, acfg.head_dim)
+        else:
+            assert p.sla is None
+    with pytest.raises(ValueError, match="unknown mechanism"):
+        TA.init_attention(torch.Generator(), dataclasses.replace(
+            acfg, mechanism="moba"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(tsmoke("qwen3_14b", layer_kinds=("moe",)))

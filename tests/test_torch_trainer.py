@@ -70,6 +70,12 @@ def test_prefetcher_yields_in_order():
 def test_make_dataset_takes_only_ported_configs():
     with pytest.raises(TypeError, match="not ported"):
         make_dataset(object(), seq_len=16, global_batch=2)
+    from repro.configs.qwen3_14b import smoke_config as jlm
+    from repro_torch.configs.qwen3_14b import smoke_config as tlm
+    jds = jmake_dataset(jlm(), seq_len=16, global_batch=2, seed=1)
+    tds = make_dataset(tlm(), seq_len=16, global_batch=2, seed=1)
+    assert tds.cfg.kind == "lm" and tds.cfg.vocab_size == tlm().vocab_size
+    _assert_batches_equal(tds[2], jds[2])
 
 
 # ---------------------------------------------------------------------------

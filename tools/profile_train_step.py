@@ -5,9 +5,12 @@ random weights with the zero-initialised adaLN and output tensors filled),
 takes one warm-up optimizer step of 2 microbatches of one 32768-latent
 video, then records the next step under ``torch.profiler`` and prints the
 device time by kernel and by group (the SLA2 forward and backward kernels,
-GEMMs, gathers, everything else) beside the step's wall time.
+GEMMs, gathers, everything else) beside the step's wall time.  With
+``--lm`` it profiles qwen3-14b instead: full width, depth cut to 2 layers
+(as chip_smoke.py's lm-train), int8 QAT forward through the kernels,
+remat "full", 2 microbatches of one 8192-token sequence.
 
-    python3 tools/profile_train_step.py
+    python3 tools/profile_train_step.py [--lm]
 """
 import os
 import sys
@@ -46,12 +49,21 @@ def main() -> int:
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    n = DIT_SHAPES["train_32k"]["seq_len"]
-    model = build_model(config(sla2_impl="kernel"))
+    lm = "--lm" in sys.argv[1:]
+    if lm:
+        from repro_torch.configs import qwen3_14b
+        n, unit = chip_smoke.LM_TRAIN_N, "token sequence"
+        model = build_model(qwen3_14b.config(
+            n_layers=chip_smoke.LM_TRAIN_LAYERS, sla2_impl="kernel",
+            quant_bits="int8", remat="full"))
+    else:
+        n, unit = DIT_SHAPES["train_32k"]["seq_len"], "latent video"
+        model = build_model(config(sla2_impl="kernel"))
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), warmup_steps=1,
                        total_steps=2, microbatches=chip_smoke.MICROBATCHES)
     state = init_train_state(model, chip_smoke.SEED, tcfg, device="cuda")
-    chip_smoke.perturb_(state["params"])
+    if not lm:
+        chip_smoke.perturb_(state["params"])
     ds = make_dataset(model.cfg, seq_len=n,
                       global_batch=chip_smoke.MICROBATCHES)
     step_fn = make_train_step(model, tcfg)
@@ -74,8 +86,9 @@ def main() -> int:
         print("profile_train_step: the profiler recorded no device time",
               file=sys.stderr)
         return 1
-    print(f"optimizer step ({chip_smoke.MICROBATCHES} microbatches of one "
-          f"{n}-latent video): wall {wall_ms:.1f} ms, device kernels "
+    print(f"{model.cfg.name} ({model.cfg.n_layers} layers) optimizer step "
+          f"({chip_smoke.MICROBATCHES} microbatches of one {n}-{unit}): wall "
+          f"{wall_ms:.1f} ms, device kernels "
           f"{total:.1f} ms ({total / wall_ms:.1%} of wall)")
     groups = {}
     for name, ms, _ in rows:
