@@ -160,7 +160,43 @@ run outside a checkout of the repository; each prints its wall time):
              layer at 2 slots) serve one request of 2 steps, finite and
              within 1e-3 relative norm of the same engine and weights on
              the CPU, f32 on both.
+22. lm-prefix qwen3-14b at full width and depth (the lm-serve weights,
+             engine and geometry) with prefix_cache off, then on: three
+             seeded 4096-token system prompts (64 pages, 8 chunks), 12
+             requests round-robin over them with seeded 16-512-token
+             suffixes, requests 3, 7 and 11 exact copies of their bare
+             system prompt; requests 0-2 served to completion first, then
+             the other 9 together, 16 new tokens each.  First-token logits
+             bit-equal off / on, greedy tokens under compare_tokens' rule,
+             hits 9, cow_copies 24, evictions 0, the prefill tokens the
+             prompts give, the pool's refcount invariants after each run,
+             every count set to 0 before and read after each run (40
+             launches a chunk and a dispatch); time to first token, ms per
+             chunk and dispatch, peak pages mapped and allocated, the
+             totals snapshots' bytes and copy time, peak memory;
+23. lm-prefix-dense  the same traffic with 6 requests (one exact copy) on
+             the dense model of phase 14 (no totals snapshots; hits 3,
+             cow_copies 8);
+24. lm-prefix-context  2 layers, f32 weights and pages, the linear
+             drafter on: two 1536-token system prompts cached, then three
+             requests on the first under a pool of 57 pages, with and
+             without swap: LRU evictions and preemptions of slots holding
+             shared pages, the invariants after every step, no verify
+             window on a shared page, tokens identical to a cache-off run;
+25. lm-internlm2  internlm2-20b at full width and depth (48 layers, 48
+             query / 8 KV heads: n_rep 6, random weights from the seed),
+             after the qwen3 weights are freed: layer 0's sla2_decode (W 1,
+             and W 4 from the linear drafter), dense_decode (W 1, and W 4
+             from the n-gram drafter, on the dense model of the same
+             tensors) and paged_prefill (offset 1024, and the 8192-token
+             prompt's last chunk) against their plain versions and timed
+             beside their bounds and SDPA; the lm-serve traffic at max_len
+             16384 (cut from 32768 to fit the weights and pool) through
+             the fused engine (48 launches a chunk and a dispatch) and the
+             gather engine, tokens under compare_tokens' rule.
 
+Phases run in the order 1-4, 6, 5, 7-11, 13-15, 22, 23, 12, 16, 24, 17,
+25, 18-21.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -193,6 +229,9 @@ LM_CAPTURE = (2048, 1920, 1792, 1664)   # lm-kernel's short prefill
 LM_TRAIN_N = 8192           # lm-train sequence length
 LM_TRAIN_LAYERS = 2         # lm-train depth: 40 cut to 2 to fit 80 GB
 LM_CKPT_N = 1024            # lm-train-context's Trainer sequences
+PREFIX_SYS = 4096           # lm-prefix system prompts: 64 pages, 8 chunks
+PREFIX_NEW = 16             # lm-prefix new tokens per request
+INTERN_MAX_LEN = 16384      # lm-internlm2: cut from 32768 to fit 80 GB
 BASELINE_N_LAT = 4096       # sla / sparse_only latents: O(N^2), cut from 32768
 BF16_TWO_ULPS = 2 ** -7
 
@@ -936,12 +975,13 @@ def _clone(x):
     return x.clone() if isinstance(x, torch.Tensor) else x
 
 
-def capture_layer0(model, params, want=None, **overrides):
+def capture_layer0(model, params, want=None, new_tokens=24, **overrides):
     """Layer 0's inputs to the paged kernels, cloned, as the engine gives
-    them, from a short 4-slot prefill at full width.  ``want`` {entry:
-    predicate(engine, args, kw)} picks the call; by default the SLA2
-    decode call of the first step with all 4 slots decoding and the
-    prefill call of the first chunk at offset >= 1024."""
+    them, from a short 4-slot prefill at full width (``new_tokens`` a
+    request).  ``want`` {entry: predicate(engine, args, kw)} picks the
+    call; by default the SLA2 decode call of the first step with all 4
+    slots decoding and the prefill call of the first chunk at offset >=
+    1024.  Raises when the engine drains before every call was seen."""
     import torch
     from repro_torch.models import attention as A
     from repro_torch.serve.engine import make_mixed_requests
@@ -966,12 +1006,15 @@ def capture_layer0(model, params, want=None, **overrides):
         return run
 
     for r in make_mixed_requests(model.cfg.vocab_size,
-                                 [(n, 24) for n in LM_CAPTURE],
+                                 [(n, new_tokens) for n in LM_CAPTURE],
                                  seed=SEED + 20):
         eng.submit(r)
     A.fused_entry_fn = capturing_entry
     try:
         while len(got) < len(want):
+            if not (eng._slots or eng._queue):
+                raise AssertionError(f"no call of {sorted(set(want) - set(got))}"
+                                     f" matched its predicate")
             eng.step()
     finally:
         A.fused_entry_fn = entry
@@ -1279,21 +1322,11 @@ def compare_tokens(tag, want, got, margins):
     return stops
 
 
-def serve_lm(model, params, counters, margins=None, on_engine=None,
-             **overrides):
-    """Serve the LM_PROMPTS (LM_NEW new tokens each, the fourth submitted
-    after the first decode dispatch) through a fused engine at the
-    lm-serve geometry.  ``counters`` {name: wrapper}: every count is set
-    to 0 just before the run and read just after.  Returns tokens, stats,
-    launches, ms per prefill chunk and per decode dispatch by active
-    slots, peak memory and wall time."""
-    import numpy as np
+def time_dispatches(eng):
+    """Time every prefill chunk and decode dispatch of ``eng`` on the host
+    clock around a synchronised call.  Returns the lists they fill: (ms
+    per chunk, {decoding slots: [ms per dispatch]})."""
     import torch
-    from repro_torch.serve.engine import make_mixed_requests
-    cfg = model.cfg
-    eng = lm_engine(model, params, **overrides)
-    reqs = make_mixed_requests(cfg.vocab_size,
-                               [(n, LM_NEW) for n in LM_PROMPTS], seed=SEED)
     prefill_ms, decode_ms = [], {}
     dispatches = lambda: eng.stats["decode_steps"] + eng.stats["spec_steps"]
 
@@ -1314,6 +1347,26 @@ def serve_lm(model, params, counters, margins=None, on_engine=None,
 
     timed("_prefill_step", lambda ms, n: prefill_ms.append(ms))
     timed("_decode_step", lambda ms, n: decode_ms.setdefault(n, []).append(ms))
+    return prefill_ms, decode_ms
+
+
+def serve_lm(model, params, counters, margins=None, on_engine=None,
+             **overrides):
+    """Serve the LM_PROMPTS (LM_NEW new tokens each, the fourth submitted
+    after the first decode dispatch) through a fused engine at the
+    lm-serve geometry.  ``counters`` {name: wrapper}: every count is set
+    to 0 just before the run and read just after.  Returns tokens, stats,
+    launches, ms per prefill chunk and per decode dispatch by active
+    slots, peak memory and wall time."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import make_mixed_requests
+    cfg = model.cfg
+    eng = lm_engine(model, params, **overrides)
+    reqs = make_mixed_requests(cfg.vocab_size,
+                               [(n, LM_NEW) for n in LM_PROMPTS], seed=SEED)
+    dispatches = lambda: eng.stats["decode_steps"] + eng.stats["spec_steps"]
+    prefill_ms, decode_ms = time_dispatches(eng)
     if margins is not None:
         record_margins(eng, margins)
     if on_engine is not None:
@@ -1848,6 +1901,463 @@ def phase_lm_context():
     del params
     free_cuda()
     return rel
+
+
+# ---------------------------------------------------------------------------
+# The prefix cache (lm-prefix, lm-prefix-dense, lm-prefix-context) and
+# internlm2-20b (lm-internlm2)
+# ---------------------------------------------------------------------------
+
+def check_pool_invariants(eng):
+    """Every page's refcount equals its page-table occurrences plus its
+    prefix-cache references; the free list holds exactly the pages at
+    refcount 0, once each (the reference's ``_check_pool_invariants``)."""
+    import numpy as np
+    alloc = eng.allocator
+    counts = np.zeros(alloc.num_pages, np.int64)
+    vals, occ = np.unique(eng._page_table, return_counts=True)
+    counts[vals[vals > 0]] = occ[vals > 0]
+    if eng._pcache is not None:
+        for p, c in eng._pcache.page_refs().items():
+            counts[p] += c
+    refs = np.array([alloc.refcount(p) for p in range(alloc.num_pages)])
+    free = np.zeros(alloc.num_pages, bool)
+    free[alloc._free] = True
+    if not (len(set(alloc._free)) == len(alloc._free)
+            and np.array_equal(refs[1:], counts[1:])
+            and np.array_equal(free[1:], counts[1:] == 0)):
+        raise AssertionError("page pool invariants broken: a refcount is not "
+                             "its page-table occurrences plus its cache "
+                             "references, or the free list drifted")
+
+
+def prefix_requests(vocab, n_reqs, seed):
+    """The lm-prefix traffic: three seeded PREFIX_SYS-token system prompts,
+    requests round-robin over them, each with a seeded suffix of 16 to 512
+    tokens, except requests 3, 7, 11, exact copies of their bare system
+    prompt.  Returns (requests, suffix length of each)."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    sys_p = [rng.integers(1, vocab, PREFIX_SYS).astype(np.int32)
+             for _ in range(3)]
+    reqs, suffix = [], []
+    for i in range(n_reqs):
+        n = 0 if i % 4 == 3 else int(rng.integers(16, 513))
+        tail = rng.integers(1, vocab, n).astype(np.int32)
+        reqs.append(Request(uid=i, prompt=np.concatenate([sys_p[i % 3], tail]),
+                            max_new_tokens=PREFIX_NEW))
+        suffix.append(n)
+    return reqs, suffix
+
+
+def drive(eng, on_step=None, max_steps=20000):
+    """Step ``eng`` until it drains, calling ``on_step()`` after every
+    step; raises when it does not drain in ``max_steps``."""
+    for _ in range(max_steps):
+        if not (eng._slots or eng._queue):
+            return
+        eng.step()
+        if on_step is not None:
+            on_step()
+    raise AssertionError(f"the engine did not drain in {max_steps} steps")
+
+
+def serve_prefix(model, params, counters, n_reqs, prefix_cache,
+                 margins=None):
+    """Serve the lm-prefix traffic through a fused lm-serve engine:
+    requests 0-2 (one per system prompt) to completion first, then the
+    rest together.  ``counters``: every count set to 0 just before and read
+    just after.  Returns tokens, first-token logits, stats, launches, time
+    to first token, ms per chunk and dispatch, peak pages mapped by active
+    slots, the totals snapshots' bytes and copy time, peak memory."""
+    import numpy as np
+    import torch
+    eng = lm_engine(model, params, prefix_cache=prefix_cache)
+    reqs, suffix = prefix_requests(model.cfg.vocab_size, n_reqs,
+                                   SEED + 30)
+    first, ttft = {}, {}
+    snap = {"n": 0, "bytes": 0, "ms": 0.0}
+    peak_mapped = [0]
+    sample = eng._sample
+
+    def first_logits(logits):
+        if logits.shape[0] == 1:            # a prefill's first token
+            (s,) = [st for st in eng._slots.values()
+                    if not st.decoding and st.pos == len(st.tokens)][:1]
+            first[s.req.uid] = logits[0].float().cpu()
+        return sample(logits)
+    eng._sample = first_logits
+    if margins is not None:
+        record_margins(eng, margins)
+    take = eng._snapshot_totals
+
+    def timed_snapshot(slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = take(slot)
+        snap["ms"] += (time.perf_counter() - t0) * 1e3
+        if out is not None:
+            snap["n"] += 1
+            snap["bytes"] += sum(t.numel() * t.element_size()
+                                 for lc in out["layers"] for t in lc.values())
+        return out
+    eng._snapshot_totals = timed_snapshot
+    prefill_ms, decode_ms = time_dispatches(eng)
+
+    def on_step():
+        now = time.perf_counter()
+        for r in [s.req for s in eng._slots.values()] + eng.completed:
+            if r.output and r.uid not in ttft:
+                ttft[r.uid] = (now - r.t_submit) * 1e3
+        row = eng._page_table
+        peak_mapped[0] = max(peak_mapped[0], len(np.unique(row[row > 0])))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs[:3]:
+        eng.submit(r)
+    drive(eng, on_step)
+    for r in reqs[3:]:
+        eng.submit(r)
+    drive(eng, on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check_pool_invariants(eng)
+    held = 0
+    if eng._pcache is not None:
+        held = sum(t.numel() * t.element_size()
+                   for n in eng._pcache._iter_nodes() if n.totals is not None
+                   for lc in n.totals["layers"] for t in lc.values())
+    done = eng.completed
+    if sorted(r.uid for r in done) != list(range(n_reqs)) or any(
+            len(r.output) != PREFIX_NEW for r in done) or len(first) != n_reqs:
+        raise AssertionError("not every request produced its tokens")
+    out = {"tokens": {r.uid: list(r.output) for r in done}, "first": first,
+           "stats": dict(eng.stats), "launches": launches, "ttft": ttft,
+           "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "peak_mapped": peak_mapped[0], "snap": snap, "held": held,
+           "peak": torch.cuda.max_memory_allocated(), "wall": wall,
+           "prompts": [len(r.prompt) for r in reqs], "suffix": suffix,
+           "cached_pages": (eng._pcache.n_nodes if eng._pcache else 0)}
+    # the hooks' bound methods hold the engine too: drop them all, so that
+    # its pool is freed before the next run allocates one
+    del eng, sample, take
+    free_cuda()
+    return out
+
+
+def phase_lm_prefix(model, params, tag, n_reqs, decode_key, decode_fn):
+    """The lm-prefix traffic cache-off, then cache-on, on the same weights:
+    first-token logits bit-equal, greedy tokens under the margin rule,
+    the hits, copies and prefill tokens the prompts give, the pool
+    invariants after the run, every kernel launched once per layer and
+    dispatch."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import sla2_decode_paged as KP
+    counters = {decode_key: decode_fn,
+                "paged_flash_prefill": KP.paged_flash_prefill}
+    margins = {}
+    off = serve_prefix(model, params, counters, n_reqs, False, margins)
+    on = serve_prefix(model, params, counters, n_reqs, True)
+    n_layers = model.cfg.n_layers
+    for name, run in (("off", off), ("on", on)):
+        st, launches = run["stats"], run["launches"]
+        want = {decode_key: n_layers * st["decode_steps"],
+                "paged_flash_prefill": n_layers * st["prefill_chunks"]}
+        log(f"[{tag}] cache {name}: {n_reqs} requests in "
+            f"{st['engine_steps']} engine steps, {run['wall']:.1f} s; "
+            f"prefill_tokens {st['prefill_tokens']}, prefill_chunks "
+            f"{st['prefill_chunks']}, {st['decode_steps']} decode steps; "
+            f"launches {launches} (want {want}); prefix hits "
+            f"{st['prefix_hits']}, misses {st['prefix_misses']}, hit tokens "
+            f"{st['prefix_hit_tokens']}, inserts {st['prefix_inserts']}, "
+            f"evictions {st['prefix_evictions']}, cow_copies "
+            f"{st['cow_copies']}")
+        per_slot = {n: (round(float(np.median(v)), 3), len(v))
+                    for n, v in sorted(run["decode_ms"].items())}
+        log(f"[{tag}] cache {name}: time to first token by request (ms) "
+            f"{[round(run['ttft'][u], 1) for u in range(n_reqs)]}; ms per "
+            f"prefill chunk median "
+            f"{float(np.median(run['prefill_ms'])):.1f} (count "
+            f"{len(run['prefill_ms'])}); ms per decode step by active slots "
+            f"(median, count) {per_slot}; "
+            f"peak pages mapped by active slots {run['peak_mapped']}, peak "
+            f"allocated {st['pool_peak_pages']}; totals snapshots "
+            f"{run['snap']['n']} copies, {run['snap']['bytes'] / 2**20:.1f} "
+            f"MiB copied in {run['snap']['ms']:.1f} ms, "
+            f"{run['held'] / 2**20:.1f} MiB held by {run['cached_pages']} "
+            f"cached pages; peak memory {run['peak'] / 2**30:.2f} GiB")
+        if launches != want or 0 in launches.values():
+            raise AssertionError(f"[{tag}] cache {name}: the path did not run "
+                                 f"each paged kernel once per layer and "
+                                 f"dispatch")
+    same = [u for u in range(n_reqs)
+            if torch.equal(off["first"][u], on["first"][u])]
+    stops = compare_tokens(tag, off["tokens"], on["tokens"], margins)
+    n_full = sum(1 for n in on["suffix"][3:] if n == 0)
+    want = {"prefix_hits": n_reqs - 3, "cow_copies": n_full * LM_CHUNK //
+            model.cfg.block_k, "prefix_evictions": 0,
+            "prefill_tokens": sum(on["prompts"][:3]) + sum(on["suffix"][3:])
+            + n_full * LM_CHUNK}
+    got = {k: on["stats"][k] for k in want}
+    log(f"[{tag}] first-token logits bit-equal cache off / on for "
+        f"{len(same)} of {n_reqs} requests; greedy tokens equal up to the "
+        f"stops {stops}; cache-on stats {got} (want {want}); prefill tokens "
+        f"on / off {on['stats']['prefill_tokens']} / "
+        f"{off['stats']['prefill_tokens']} = "
+        f"{on['stats']['prefill_tokens'] / off['stats']['prefill_tokens']:.3f}"
+        f"; pool invariants hold after both runs")
+    if len(same) != n_reqs or got != want \
+            or off["stats"]["prefill_tokens"] != sum(off["prompts"]):
+        raise AssertionError(f"[{tag}] the prefix cache changed the first "
+                             f"tokens' logits or missed its hits, copies or "
+                             f"prefill tokens")
+    return {"off": off, "on": on, "stops": stops}
+
+
+def phase_lm_prefix_context():
+    """qwen3-14b at full width, 2 layers, f32 weights and pages, the linear
+    drafter on: two 1536-token system prompts cached, then three requests
+    on the first under a pool too small for them, once with swap and once
+    without.  Evictions of the other prompt's pages and preemptions of
+    slots that hold shared pages; tokens identical to an undisturbed
+    cache-off run; the pool invariants after every step; no verify window
+    writes a shared page."""
+    import numpy as np
+    from repro_torch.configs.qwen3_14b import config
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Request
+    model = build_model(config(n_layers=2, dtype="float32"))
+    params = model.init(SEED + 26, device=DEV)
+    rng = np.random.default_rng(SEED + 27)
+    v = model.cfg.vocab_size
+    sys_p = [rng.integers(1, v, 1536).astype(np.int32) for _ in range(2)]
+    warm = [np.concatenate([p, rng.integers(1, v, 100).astype(np.int32)])
+            for p in sys_p]
+    hot = [np.concatenate([sys_p[0], rng.integers(1, v, n).astype(np.int32)])
+           for n in (700, 650, 600)]
+
+    def run(prefix_cache, **kw):
+        eng = lm_engine(model, params, max_slots=3, max_len=4096,
+                        page_dtype="float32", speculative="linear",
+                        draft_len=3, prefix_cache=prefix_cache, **kw)
+        verify = eng.model.decode_verify
+        windows = [0]
+
+        def guarded(p, batch, caches):
+            lengths = batch["lengths"].tolist()
+            wlen = batch["window_len"].tolist()
+            active = batch["active"].tolist()
+            for slot, st in eng._slots.items():
+                if not active[slot]:
+                    continue
+                lo = lengths[slot] // eng.page_size
+                hi = (lengths[slot] + wlen[slot] - 1) // eng.page_size
+                if lo < st.n_shared or any(
+                        eng.allocator.refcount(int(eng._page_table[slot, lg]))
+                        != 1 for lg in range(lo, hi + 1)):
+                    raise AssertionError("a verify window writes a shared "
+                                         "page")
+                windows[0] += 1
+            return verify(p, batch, caches)
+        eng.model = dataclasses.replace(eng.model, decode_verify=guarded)
+        on_step = (lambda: check_pool_invariants(eng)) if prefix_cache \
+            else None
+        for i, p in enumerate(warm):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+            drive(eng, on_step)
+        for i, p in enumerate(hot, start=len(warm)):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+        drive(eng, on_step)
+        out = {r.uid: r.output for r in eng.completed}
+        st = dict(eng.stats)
+        del eng
+        free_cuda()
+        return out, st, windows[0]
+
+    want, _, _ = run(False)
+    stats = {}
+    for name, extra in (("swap", {}), ("recompute", {"swap_pages": 0})):
+        out, st, windows = run(True, num_pages=57, **extra)
+        stats[name] = st
+        log(f"[lm-prefix-context] 2 layers, f32, linear drafter, pool of 57 "
+            f"pages, {name}: prefix hits {st['prefix_hits']}, evictions "
+            f"{st['prefix_evictions']}, cow_copies {st['cow_copies']}, "
+            f"preemptions {st['preemptions']}, swap-outs {st['swap_outs']}, "
+            f"recomputes {st['recomputes']}; {windows} verify windows "
+            f"checked clear of shared pages; pool invariants after every "
+            f"step; tokens identical to the undisturbed cache-off run: "
+            f"{out == want}")
+        if out != want:
+            raise AssertionError(f"[lm-prefix-context] {name}: the prefix "
+                                 f"cache under preemption changed the tokens")
+        if not (st["prefix_evictions"] > 0 and st["preemptions"] > 0
+                and st["prefix_hits"] >= 3 and windows > 0):
+            raise AssertionError(f"[lm-prefix-context] {name}: no eviction, "
+                                 f"preemption, hit or verify window")
+    if not (stats["swap"]["swap_outs"] >= 1
+            and stats["recompute"]["recomputes"] >= 1):
+        raise AssertionError("[lm-prefix-context] the small pool forced no "
+                             "swap-out or no recompute")
+    del params
+    free_cuda()
+    return stats
+
+
+def kernel_case(tag, fn, plain, args, kw, bound, library=None, iters=50):
+    """Hold one captured call of a wrapper against its plain version and
+    time it: a loop of calls and, for the decode kernels, calls replayed
+    from a CUDA graph.  Returns (max abs err, ms, ms from a graph or None,
+    plain ms, bound ms, library ms or None)."""
+    import torch
+    with torch.no_grad():
+        o = fn(*args, **kw)
+        torch.cuda.synchronize()
+        po = plain(*args, **kw)
+        err, abs_err = rel_err(o, po), float((o - po).abs().max())
+        if not err < BOUNDS["none"]:
+            raise AssertionError(f"[lm-internlm2] {tag} disagrees with its "
+                                 f"plain version: rel err {err:.3e}")
+        ms = cuda_ms(lambda: fn(*args, **kw), iters=iters)
+        ms_graph = (graph_ms(lambda: fn(*args, **kw)) if iters > 10
+                    else None)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=2, warmup=1)
+    lib = library() if library is not None else None
+    log(f"[lm-internlm2] {tag}: rel max err {err:.3e} (bound 2e-5), max abs "
+        f"err {abs_err:.3e}; kernel {ms:.4f} ms in a loop of calls"
+        + (f" ({ms_graph:.4f} ms from a CUDA graph)" if ms_graph else "")
+        + f", plain {plain_ms:.3f} ms, bound {bound:.4f} ms, "
+        f"{bound / ms:.1%} of bound; library "
+        + ("none" if lib is None else
+           f"{lib if isinstance(lib, float) else lib[0]:.4f} ms"))
+    return abs_err, ms, ms_graph, plain_ms, bound, lib
+
+
+def phase_lm_internlm2():
+    """internlm2-20b at full width and depth (48 layers, 48 query / 8 KV
+    heads: n_rep 6), bf16, random weights: layer 0's paged kernels against
+    their plain versions and timed; the lm-serve traffic at max_len
+    INTERN_MAX_LEN through the fused engine (48 launches a dispatch and a
+    chunk) and the gather engine (tokens under the margin rule)."""
+    import torch
+    from repro_torch.configs import internlm2_20b
+    from repro_torch.kernels import sla2_decode_paged as KP
+    from repro_torch.models import attention as A
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import _pool_page_bytes
+    model = build_model(internlm2_20b.config())
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=DEV)
+    n_params = sum(p.numel() for p in params.parameters())
+    bk, hkv = cfg.block_k, cfg.num_kv_heads
+    n_rep = cfg.num_heads // hkv
+    log(f"[model] {cfg.name}: {n_params / 1e9:.3f} B params "
+        f"({n_params * 2 / 1e9:.1f} GB in bf16), {cfg.n_layers} layers, "
+        f"{cfg.num_heads} / {hkv} heads (n_rep {n_rep}), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    over = dict(max_len=INTERN_MAX_LEN)
+    full = lambda e: sum(s.decoding for s in e._slots.values()) == LM_SLOTS
+    cap = capture_layer0(model, params, **over)
+    cap.update(capture_layer0(model, params, {
+        "sla2_decode_verify": lambda e, a, k: full(e)
+        and a[0].shape[2] == 4}, new_tokens=64, speculative="linear",
+        draft_len=3, **over))
+    dense_model, dense_p = dense_model_params(model, params)
+    cap.update(capture_layer0(dense_model, dense_p, {
+        "dense_decode_fused": lambda e, a, k: full(e)}, **over))
+    cap.update(capture_layer0(dense_model, dense_p, {
+        "dense_decode_verify": lambda e, a, k: full(e)
+        and a[0].shape[2] == 4}, speculative="ngram", draft_len=3, **over))
+
+    # the lm-serve traffic, its last 8192-token chunk captured
+    last = {}
+    entry = A.fused_entry_fn
+
+    def capture_last(eng):
+        def capturing(name):
+            fn = entry(name)
+
+            def run(*args, **kw):
+                if (name == "paged_flash_prefill" and "p" not in last
+                        and int(kw["offset"]) == LM_PROMPTS[0] - LM_CHUNK):
+                    last["p"] = ([_clone(a) for a in args],
+                                 {k: _clone(x) for k, x in kw.items()})
+                return fn(*args, **kw)
+            return run
+        A.fused_entry_fn = capturing
+        pool = _pool_page_bytes(eng.caches) * eng.allocator.num_pages
+        log(f"[lm-internlm2] engine of {LM_SLOTS} slots at max_len "
+            f"{INTERN_MAX_LEN} (cut from {LM_MAX_LEN}): "
+            f"{eng.allocator.num_pages} pages, pool {pool / 1e9:.2f} GB")
+
+    margins = {}
+    try:
+        run = serve_lm(model, params, {
+            "sla2_decode_paged": KP.sla2_decode_verify,
+            "paged_flash_prefill": KP.paged_flash_prefill}, margins=margins,
+            on_engine=capture_last, **over)
+    finally:
+        A.fused_entry_fn = entry
+    check_launches("lm-internlm2", run, cfg.n_layers, "sla2_decode_paged",
+                   "decode_steps")
+    log(f"[lm-internlm2] ms per prefill chunk "
+        f"{[round(t, 1) for t in run['prefill_ms']]}")
+    log(f"[lm-internlm2] ms per decode step by active slots (median, "
+        f"count): {run['decode_ms']}; peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB")
+    gather = serve_lm(model, params, {}, paged_impl="gather", **over)
+    stops = compare_tokens("lm-internlm2 gather", run["tokens"],
+                           gather["tokens"], margins)
+    log(f"[lm-internlm2] gather engine: {gather['wall']:.1f} s, peak memory "
+        f"{gather['peak'] / 2**30:.2f} GiB; greedy tokens equal the fused "
+        f"engine's up to the stops {stops}")
+
+    res = {"launches": run["launches"], "stops": stops}
+    args, kw = cap["sla2_decode_fused"]
+    res["decode"] = kernel_case(
+        f"sla2_decode W 1 q{tuple(args[0].shape)} t_new "
+        f"{args[7].tolist()}, valid entries {int(args[5].sum())}/"
+        f"{args[5].numel()}, complete {int(args[6].sum())}",
+        KP.sla2_decode_fused,
+        KP.sla2_decode_fused_plain, args, kw, decode_bound_ms(args))
+    args, kw = cap["sla2_decode_verify"]
+    res["decode_w4"] = kernel_case(
+        f"sla2_decode W 4 q{tuple(args[0].shape)}, valid entries "
+        f"{int(args[5].sum())}/{args[5].numel()}", KP.sla2_decode_verify,
+        KP.sla2_decode_verify_plain, args, kw, decode_bound_ms(args))
+    for key, name in (("dense", "dense_decode_fused"),
+                      ("dense_w4", "dense_decode_verify")):
+        args, kw = cap[name]
+        q, kp, vp, table, t_new = args[:5]
+        qv = q if q.dim() == 5 else q[:, :, None]
+        tv = t_new if t_new.dim() == 2 else t_new[:, None]
+        res[key] = kernel_case(
+            f"{name} q{tuple(q.shape)} t_new {t_new.tolist()}",
+            getattr(KP, name), getattr(KP, name + "_plain"), args, kw,
+            dense_bound_ms(qv, kp, table, tv, bk),
+            lambda: dense_sdpa_ms(qv, kp, vp, table, tv))
+    for key, (args, kw) in (("prefill", cap["paged_flash_prefill"]),
+                            ("prefill_last", last["p"])):
+        ops_, nbytes = prefill_work(args[0], args[3], kw["offset"], bk,
+                                    kw["n_rep"], kw["window"],
+                                    kw["prefix_len"])
+        bound = max(ops_ / PEAK_BF16_OPS, nbytes / PEAK_BYTES) * 1e3
+        res[key] = kernel_case(
+            f"paged_prefill offset {kw['offset']} q{tuple(args[0].shape)}",
+            KP.paged_flash_prefill, KP.paged_flash_prefill_plain, args, kw,
+            bound, lambda: sdpa_ms(args[0], args[1], args[2], args[3],
+                                   kw["offset"], kw["n_rep"]), iters=10)
+        res[key + "_offset"] = int(kw["offset"])
+    del cap, last, params, dense_p
+    free_cuda()
+    return res
 
 
 def lm_layer0_qkv(model, params, tokens):
@@ -2450,6 +2960,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.configs.wan_dit_1_3b import DIT_SHAPES, config
     from repro_torch.kernels import build
+    from repro_torch.kernels import sla2_decode_paged as KP
     from repro_torch.models.api import build_model
     from repro_torch.serve import diffusion as DS
     assert DIT_SHAPES["denoise_32k"]["seq_len"] == N_LAT
@@ -2520,14 +3031,22 @@ def main() -> int:
     lm_dense = timed("lm-dense-serve", phase_lm_dense_serve, dense_model,
                      dense_p)
     free_cuda()
+    lm_prefix = timed("lm-prefix", phase_lm_prefix, lm_model, lm_params,
+                      "lm-prefix", 12, "sla2_decode_paged",
+                      KP.sla2_decode_verify)
+    lm_prefix_dense = timed("lm-prefix-dense", phase_lm_prefix, dense_model,
+                            dense_p, "lm-prefix-dense", 6,
+                            "dense_decode_paged", KP.dense_decode_verify)
     timed("lm-context", phase_lm_context)
     timed("lm-spec-context", phase_lm_spec_context)
+    timed("lm-prefix-context", phase_lm_prefix_context)
     lm_static = timed("lm-static", phase_lm_static, lm_model, lm_params,
                       dense_model, dense_p, lm_dense["off"] | {
                           "margins": lm_dense["margins"],
                           "rows": lm_dense["rows"]})
     del lm_params, dense_p
     free_cuda()
+    lm_intern = timed("lm-internlm2", phase_lm_internlm2)
     timed("lm-static-context", phase_lm_static_context)
     lm_train = timed("lm-train", phase_lm_train)
     timed("lm-train-context", phase_lm_train_context)
@@ -2589,8 +3108,28 @@ def main() -> int:
                 "gather_floor_ms": lm_train["gather_floor"][key]}})
     d_abs, d_ms, d_plain, d_bound, d_graph, d_eps = lm_kern["decode"]
     w4_ms, w4_plain, w4_bound, _, w4_graph, w4_eps = lm_spec["w4"]
+    on_prefix = lambda run, key: (run["off"]["launches"][key]
+                                  + run["on"]["launches"][key])
+
+    def n_rep6(key, w4_key=None):
+        """The lm-internlm2 numbers of one kernel (n_rep 6, 48 layers)."""
+        err, ms_, graph, plain_, bound, lib = lm_intern[key]
+        out = {"max_abs_err": err, "ms": ms_, "ms_graph": graph,
+               "plain_ms": plain_, "bound_ms": bound,
+               "library_ms": lib[0] if isinstance(lib, tuple) else lib}
+        if w4_key is not None:
+            err, ms_, graph, plain_, bound, lib = lm_intern[w4_key]
+            out.update(max_abs_err=max(out["max_abs_err"], err), ms_w4=ms_,
+                       ms_w4_graph=graph, plain_ms_w4=plain_,
+                       bound_ms_w4=bound,
+                       library_ms_w4=lib[0] if isinstance(lib, tuple)
+                       else lib)
+        return out
+
     by_path = {"lm_serve": lm_serve["launches"]["sla2_decode_paged"],
-               "lm_spec_linear": lm_spec["launches"]["sla2_decode_paged"]}
+               "lm_spec_linear": lm_spec["launches"]["sla2_decode_paged"],
+               "lm_prefix": on_prefix(lm_prefix, "sla2_decode_paged"),
+               "lm_internlm2": lm_intern["launches"]["sla2_decode_paged"]}
     rows.append({
         "name": "sla2_decode_paged", "route": "cuda",
         "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
@@ -2603,6 +3142,10 @@ def main() -> int:
         "entries_per_split": d_eps[0], "entries_per_split_w4": w4_eps[0],
         "timing": "ms: a loop of 50 wrapper calls between CUDA events; "
                   "*_graph: 20 calls replayed from a CUDA graph",
+        "internlm2": {"shape": "internlm2-20b layer 0, B 4, Hkv 8, n_rep 6, "
+                               "Dh 128, bk 64, bf16 pool; W 4 the linear "
+                               "drafter's window",
+                      **n_rep6("decode", "decode_w4")},
         "library_ms": None,
         "library_note": "no PyTorch call computes routed paged attention "
                         "with the linear complement and the alpha combine"})
@@ -2611,7 +3154,9 @@ def main() -> int:
     by_path = {"lm_dense_serve":
                lm_dense["off"]["launches"]["dense_decode_paged"],
                "lm_spec_ngram":
-               lm_dense["ngram"]["launches"]["dense_decode_paged"]}
+               lm_dense["ngram"]["launches"]["dense_decode_paged"],
+               "lm_prefix_dense": on_prefix(lm_prefix_dense,
+                                            "dense_decode_paged")}
     rows.append({
         "name": "dense_decode_paged", "route": "cuda",
         "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
@@ -2623,6 +3168,10 @@ def main() -> int:
         "library_ms_w4": w4[3], "pages_per_split": k_pps,
         "ms_graph": k_graph, "ms_w4_graph": w4[5],
         "library_ms_graph": k_lib_graph, "library_ms_w4_graph": w4[6],
+        "internlm2": {"shape": "internlm2-20b layer 0 (the dense model from "
+                               "its tensors), B 4, Hkv 8, n_rep 6, Dh 128, "
+                               "bk 64, bf16 pool; W 4 the n-gram window",
+                      **n_rep6("dense", "dense_w4")},
         "timing": "ms: a loop of 50 wrapper calls between CUDA events, as "
                   "the other kernels; *_graph: 20 calls replayed from a "
                   "CUDA graph (device time without the host's issue "
@@ -2636,7 +3185,12 @@ def main() -> int:
                for name, run in (("lm_serve", lm_serve),
                                  ("lm_spec_linear", lm_spec),
                                  ("lm_dense_serve", lm_dense["off"]),
-                                 ("lm_spec_ngram", lm_dense["ngram"]))}
+                                 ("lm_spec_ngram", lm_dense["ngram"]),
+                                 ("lm_internlm2", lm_intern))}
+    by_path.update(lm_prefix=on_prefix(lm_prefix, "paged_flash_prefill"),
+                   lm_prefix_dense=on_prefix(lm_prefix_dense,
+                                             "paged_flash_prefill"))
+    long6 = n_rep6("prefill_last")
     rows.append({
         "name": "paged_flash_prefill", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_prefill.cu",
@@ -2649,6 +3203,17 @@ def main() -> int:
         "offset": 2 * LM_CHUNK, "ms_long": l_ms, "bound_ms_long": l_bound,
         "library_ms_long": l_lib, "offset_long": LM_PROMPTS[0] - LM_CHUNK,
         "sweep_max_rel_err": lm_kern["sweep_err"],
+        "internlm2": {"shape": "internlm2-20b layer 0, 48 query heads over 8 "
+                               "KV heads (n_rep 6), C 512, Dh 128, bk 64, "
+                               "bf16",
+                      "offset": lm_intern["prefill_offset"],
+                      **n_rep6("prefill"),
+                      "offset_long": lm_intern["prefill_last_offset"],
+                      "ms_long": long6["ms"],
+                      "plain_ms_long": long6["plain_ms"],
+                      "bound_ms_long": long6["bound_ms"],
+                      "library_ms_long": long6["library_ms"],
+                      "max_abs_err_long": long6["max_abs_err"]},
         "library_note": "scaled_dot_product_attention over the K/V pages "
                         "gathered into a contiguous copy (gather not timed) "
                         "with the offset-causal mask"})

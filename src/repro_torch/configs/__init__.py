@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the video DiT and qwen3-14b so far.
+"""Architecture registry of the port: the video DiT, qwen3-14b and
+internlm2-20b so far.
 
 Each module exposes ``config(**overrides)`` (full size) and
 ``smoke_config(**overrides)`` (reduced, for CPU tests).
@@ -7,7 +8,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_NAMES = ["wan_dit_1_3b", "qwen3_14b"]
+ARCH_NAMES = ["wan_dit_1_3b", "qwen3_14b", "internlm2_20b"]
 
 
 def _module(name: str):

@@ -16,6 +16,9 @@ dense decoder-only LM (training, static and paged serving).
     model.decode_paged(params, batch, caches)   -> (logits, caches)     LM
     model.swap_out(caches, page_row, slot)      -> slot state           LM
     model.swap_in(caches, page_row, slot, st)   -> caches               LM
+    model.extract_totals(caches, slot)          -> slot totals          LM
+    model.insert_totals(caches, slot, st)       -> caches               LM
+    model.copy_page(caches, src, dst)           -> caches               LM
     model.decode_verify(params, batch, caches)  -> (logits, caches)     LM
     model.commit_window(caches, page_table, lengths, accepted, active,
                         window)                 -> caches               LM
@@ -64,7 +67,8 @@ class Model:
     commit_window: Optional[Callable] = None
     draft_init: Optional[Callable] = None
     draft_step: Optional[Callable] = None
-    # not ported yet (ROADMAP): the prefix cache
+    # the prefix cache: a slot's totals snapshot and its restore, and the
+    # copy of one physical page (copy-on-write)
     extract_totals: Optional[Callable] = None
     insert_totals: Optional[Callable] = None
     copy_page: Optional[Callable] = None
@@ -143,6 +147,10 @@ def _lm_model(cfg: T.ModelConfig) -> Model:
             cfg, c, page_row, slot),
         swap_in=lambda c, page_row, slot, state: T.swap_in_slot(
             cfg, c, page_row, slot, state),
+        extract_totals=lambda c, slot: T.extract_linear_totals(cfg, c, slot),
+        insert_totals=lambda c, slot, st: T.insert_linear_totals(
+            cfg, c, slot, st),
+        copy_page=lambda c, src, dst: T.copy_kv_page(cfg, c, src, dst),
         decode_verify=lambda p, b, c: T.decode_verify(
             p, cfg, b["tokens"], c, page_table=b["page_table"],
             lengths=b["lengths"], active=b["active"],

@@ -481,6 +481,36 @@ def insert_paged_state(cache: dict, page_row, slot: int, state: dict) -> dict:
     return cache
 
 
+def extract_slot_state(cache: dict, slot: int) -> dict:
+    """Copies of one slot's per-slot leaves only (the SLA2 totals): the
+    prefix summary a prefix-cache node snapshots.  Empty for a cache
+    without per-slot state."""
+    return {k: cache[k][slot].clone() for k in SLOT_KEYS if k in cache}
+
+
+def insert_slot_state(cache: dict, slot: int, state: dict) -> dict:
+    """Write an ``extract_slot_state`` snapshot back at ``slot``, in
+    place: the totals restore of a prefix-cache hit.  Raises ValueError
+    for a leaf the cache does not have."""
+    for k, v in state.items():
+        if k not in cache:
+            raise ValueError(
+                f"slot-state leaf {k!r} does not exist in the target cache "
+                f"(has {sorted(cache)}): wrong cache kind for this insert")
+        cache[k][slot] = v.to(device=cache[k].device, dtype=cache[k].dtype)
+    return cache
+
+
+def copy_paged_page(cache: dict, src: int, dst: int) -> dict:
+    """Copy physical page ``src`` onto ``dst`` in every page leaf (K/V,
+    the SLA2 pooled key, and the scales of a quantised pool), in place:
+    the device half of the engine's copy-on-write."""
+    for k in PAGE_KEYS:
+        if k in cache:
+            cache[k][dst] = cache[k][src]
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Dispatch between the fused kernels and the gather reference
 # ---------------------------------------------------------------------------

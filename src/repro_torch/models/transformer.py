@@ -3,8 +3,9 @@ attention + gated SiLU MLP) in an ``nn.ModuleList``, with the
 full-sequence forward and the next-token loss (training), the static
 cache path (``prefill`` / ``decode_step``: one shared length for the
 batch), its paged serving path (chunked prefill, per-slot decode, swap of
-one slot's state) and speculative decoding (the verify window, its
-commit, and the SLA2 linear drafter's state and step).  The reference
+one slot's state, the prefix cache's totals snapshot and page copy) and
+speculative decoding (the verify window, its commit, and the SLA2 linear
+drafter's state and step).  The reference
 stacks its layers into scanned ``groups``; ``convert.lm_params_from_numpy``
 unstacks them.
 
@@ -331,6 +332,43 @@ def swap_in_slot(cfg: ModelConfig, caches: dict, page_row, slot: int,
         raise ValueError("swap state does not have one entry per layer")
     for lc, st in zip(caches["layers"], state["layers"]):
         A.insert_paged_state(lc, page_row, slot, st)
+    return caches
+
+
+def extract_linear_totals(cfg: ModelConfig, caches: dict, slot: int) -> dict:
+    """Every layer's per-slot state of one slot (device copies of the
+    SLA2 totals; empty dicts for a dense stack): the snapshot a
+    prefix-cache node keeps, so that a hit restores the slot without
+    prefilling its prefix again."""
+    return {"layers": [A.extract_slot_state(lc, slot)
+                       for lc in caches["layers"]]}
+
+
+def insert_linear_totals(cfg: ModelConfig, caches: dict, slot: int,
+                         totals: dict) -> dict:
+    """Write an ``extract_linear_totals`` snapshot back at ``slot`` in
+    every layer, in place: the restore of a prefix-cache hit before
+    chunked prefill resumes at the first uncached page."""
+    layers = totals.get("layers", ())
+    if len(layers) != len(caches["layers"]):
+        raise ValueError("slot totals do not have one entry per layer")
+    for lc, st in zip(caches["layers"], layers):
+        missing = [k for k in A.SLOT_KEYS if k in lc and k not in st]
+        if missing:
+            raise ValueError(
+                f"slot totals for a 'dense' layer must carry {missing} "
+                f"leaves, got {sorted(st)}: snapshot taken from a "
+                "different layer kind?")
+        A.insert_slot_state(lc, slot, st)
+    return caches
+
+
+def copy_kv_page(cfg: ModelConfig, caches: dict, src: int, dst: int) -> dict:
+    """Copy physical page ``src`` onto ``dst`` in every layer, in place:
+    the engine's copy-on-write of a page shared through the prefix
+    cache."""
+    for lc in caches["layers"]:
+        A.copy_paged_page(lc, src, dst)
     return caches
 
 

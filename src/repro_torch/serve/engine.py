@@ -22,6 +22,16 @@ so far (re-prefill, then the generated tokens fed back through decode).
 Either way the request continues token-identically.  ``admission=
 'conservative'`` reserves every request's worst case and never preempts.
 
+With ``prefix_cache`` on, pages are reference-counted and shared: a
+finished prompt leaves its chunk-aligned full pages in a trie
+(``serve/prefix_cache.py``), with a host snapshot of the SLA2 totals at
+every chunk boundary; a later prompt that starts with the same tokens maps
+those pages into its page table, restores the totals and prefills only
+the rest.  A slot never writes a shared page: it copies the page into a
+private one first.  Cached prefixes that no slot maps are evicted, least
+recently used first, before the pool preempts a live slot.  Outputs are
+token-identical to ``prefix_cache=False``.
+
 The page table and the scheduler stay on the host; the pools, the model
 and the sampling run on the device, and only the sampled ids are copied
 back.  Greedy sampling is an argmax; with ``temperature > 0`` the Gumbel
@@ -34,7 +44,7 @@ idle, its prompts left-padded with token 0 to one length, and drained
 before the next), and ``generate_sequential`` the unbatched greedy oracle
 on the same path.
 
-Not ported yet (ROADMAP): the prefix cache and sharded serving raise
+Not ported yet (ROADMAP): sharded serving (``mesh``) raises
 ``ValueError``.
 """
 from __future__ import annotations
@@ -49,6 +59,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.quant import true_div
 from repro_torch.models.attention import PAGE_KEYS
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.speculative import (LinearDrafter, NGramDrafter,
                                            greedy_accept, rejection_sample)
 
@@ -99,8 +110,13 @@ class EngineConfig:
     speculative: str = "off"
     draft_len: int = 3
     ngram_max: int = 3                 # longest suffix n-gram matched
-    # not ported yet: anything but these defaults raises ValueError
+    # copy-on-write prefix caching (serve/prefix_cache.py): admission maps
+    # the longest cached full-page prefix of a prompt into the slot's page
+    # table (a reference more per page) and skips that much chunked
+    # prefill; finished prompts leave their pages in an LRU trie that pool
+    # pressure evicts before it preempts a live slot
     prefix_cache: bool = False
+    # not ported yet: anything but None raises ValueError
     mesh: Optional[Any] = None
 
 
@@ -128,36 +144,57 @@ def make_mixed_requests(vocab_size: int, work, seed: int = 0,
 
 
 class PageAllocator:
-    """Free list over pages 1..num_pages-1 (page 0 is the trash page);
-    freeing a page that is not allocated raises.  (The reference counts
-    references per page for the prefix cache, which is not ported.)"""
+    """Reference-counted LIFO free list over pages 1..num_pages-1 (page 0
+    is the trash page).
+
+    ``alloc`` hands out a page at refcount 1; ``incref`` adds a sharer (a
+    prefix-cache node, or another slot mapping the page); ``free`` drops
+    one reference, and the page returns to the free list when the last
+    one goes.  Freeing an unreferenced page raises.  ``min_available`` is
+    the fewest pages the free list has held (the pool's high-water
+    mark)."""
 
     def __init__(self, num_pages: int):
         self.num_pages = num_pages
         self._free = list(range(num_pages - 1, 0, -1))
-        self._used = np.zeros(num_pages, bool)
+        self._ref = np.zeros(num_pages, np.int32)
+        self.min_available = num_pages - 1
 
     @property
     def available(self) -> int:
         """Pages currently free."""
         return len(self._free)
 
+    def refcount(self, page: int) -> int:
+        """References held on a physical page (0: free)."""
+        return int(self._ref[page])
+
     def alloc(self) -> int:
-        """One free page; raises when the pool is dry."""
+        """One free page at refcount 1; raises when the pool is dry."""
         if not self._free:
             raise RuntimeError("page pool exhausted")
         page = self._free.pop()
-        self._used[page] = True
+        self._ref[page] = 1
+        self.min_available = min(self.min_available, len(self._free))
         return page
 
+    def incref(self, page: int) -> None:
+        """One more reference on an allocated page."""
+        assert 0 < page < self.num_pages and self._ref[page] > 0, \
+            f"incref of unallocated page {page}"
+        self._ref[page] += 1
+
     def free(self, pages) -> None:
-        """Return pages to the free list; raises on a double free."""
+        """Drop one reference per page; a page whose count reaches 0 goes
+        back to the free list.  Raises on a page that holds none."""
         for p in pages:
             p = int(p)
-            if not (0 < p < self.num_pages and self._used[p]):
+            assert 0 < p < self.num_pages
+            if self._ref[p] == 0:
                 raise RuntimeError(f"double free of physical page {p}")
-            self._used[p] = False
-            self._free.append(p)
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                self._free.append(p)
 
 
 @dataclasses.dataclass
@@ -173,6 +210,18 @@ class _Slot:
     # sampling is suppressed until the list drains), which rebuilds the
     # dropped cache by repeating the original computation
     replay: Optional[list] = None
+    # prefix cache: the first n_shared logical pages are mapped from the
+    # trie (never written without a copy, never swapped); cache_node is the
+    # trie node at the hit depth (then the deepest inserted one); snaps
+    # holds the totals snapshots taken at chunk boundaries during prefill,
+    # inserted with the prompt's pages once it completes
+    n_shared: int = 0
+    cache_node: Any = None
+    snaps: Optional[dict] = None
+    # the node pinned at hit time, held for the slot's whole life
+    # (preemption included), so that eviction never detaches a node whose
+    # page the slot maps
+    pinned_node: Any = None
 
 
 @dataclasses.dataclass
@@ -182,6 +231,11 @@ class _ResumeState:
     mode: str                          # 'swap' | 'recompute'
     slot: _Slot
     length: int = 0                    # swap: tokens in the saved pages
+    # swap with the prefix cache: the shared prefix is not swapped (its
+    # pages stay alive under the pinned trie node) and is mapped again on
+    # resume; only the private suffix rides in the SwapPool
+    n_shared: int = 0
+    shared_phys: Optional[np.ndarray] = None
 
 
 class SwapPool:
@@ -318,11 +372,10 @@ class ServeEngine:
     def __init__(self, model, ecfg: EngineConfig, device="cuda"):
         if model.decode_paged is None:
             raise ValueError(f"{model.kind} has no paged serving path")
-        for name, off in (("prefix_cache", False), ("mesh", None)):
-            if getattr(ecfg, name) != off:
-                raise ValueError(
-                    f"EngineConfig.{name}={getattr(ecfg, name)!r} is not "
-                    f"ported yet (ROADMAP); the port serves {name}={off!r}")
+        if ecfg.mesh is not None:
+            raise ValueError(
+                f"EngineConfig.mesh={ecfg.mesh!r} is not ported yet "
+                "(ROADMAP); the port serves mesh=None")
         if ecfg.admission not in ("optimistic", "conservative"):
             raise ValueError(f"unknown admission policy {ecfg.admission!r}")
         if ecfg.page_dtype is not None and ecfg.page_dtype not in _POOL_DTYPES:
@@ -352,7 +405,20 @@ class ServeEngine:
                       "recomputes": 0, "spec_steps": 0, "spec_drafted": 0,
                       "spec_accepted": 0, "engine_steps": 0,
                       "prefill_tokens": 0, "prefill_chunks": 0,
-                      "decode_steps": 0}
+                      "decode_steps": 0, "prefix_hits": 0,
+                      "prefix_misses": 0, "prefix_hit_tokens": 0,
+                      "prefix_inserts": 0, "prefix_evictions": 0,
+                      "cow_copies": 0,
+                      # pool pressure and swap, refreshed every step
+                      "swap_bytes": 0, "min_available": num_pages - 1,
+                      "pool_peak_pages": 0}
+        # True when a layer keeps per-slot state (the SLA2 totals), which
+        # the prefix cache snapshots at chunk boundaries and restores
+        self._slot_state = bool(model.has_slot_state)
+        self._pcache = None
+        if ecfg.prefix_cache:
+            self._pcache = PrefixCache(page, self.chunk // page,
+                                       need_totals=self._slot_state)
         self._slots: dict = {}                      # slot -> _Slot
         self._prefill_order: list = []              # FCFS chunked prefill
         self._page_table = np.zeros((ecfg.max_slots, self.max_pages),
@@ -426,25 +492,34 @@ class ServeEngine:
         optimistic gate)."""
         if resume is not None and resume.mode == "swap":
             s = resume.slot
+            # the shared prefix is mapped again by incref, not allocated
+            n_sh = resume.n_shared
             if s.decoding and self._spec:
                 # a verify step maps pages for its whole window up front
                 blocks = (resume.length + self._window_len(s) - 1) \
                     // self.page_size + 1
-                return max(s.n_pages, blocks)
+                return max(s.n_pages, blocks) - n_sh
             if s.decoding:
                 boundary = resume.length % self.page_size == 0
-                return s.n_pages + (1 if boundary else 0)
+                return s.n_pages + (1 if boundary else 0) - n_sh
             # mid-prefill: the saved pages may already cover part of the
             # next chunk, so take the larger of the two, never the sum
             nxt = min(self.chunk, len(s.tokens) - s.pos)
-            return max(s.n_pages, -(-(s.pos + nxt) // self.page_size))
+            return max(s.n_pages,
+                       -(-(s.pos + nxt) // self.page_size)) - n_sh
         tokens = req.prompt if resume is None else resume.slot.tokens
         return -(-min(self.chunk, len(tokens)) // self.page_size)
 
     def _alloc_page(self, slot: int) -> Optional[int]:
-        """One page off the free list, preempting the youngest slot while
-        the pool is dry.  None if ``slot`` itself was preempted."""
+        """One page off the free list; while the pool is dry, evict the
+        least recently used cached prefix, then preempt the youngest slot.
+        None if ``slot`` itself was preempted."""
         while self.allocator.available == 0:
+            if self._pcache is not None \
+                    and self._pcache.evict_one(self.allocator):
+                # the page reaches the free list only once no slot maps it
+                self.stats["prefix_evictions"] += 1
+                continue
             victim = self.scheduler.victim(self._slots)
             self._preempt(victim)
             if victim == slot:
@@ -462,23 +537,48 @@ class ServeEngine:
         self._slots[slot].n_pages += 1
         return True
 
+    def _cow_page(self, slot: int, logical: int) -> bool:
+        """Copy-on-write: give ``slot`` a private copy of a mapped shared
+        page before a write lands on it.  A page the slot alone holds (its
+        cache node was evicted meanwhile) is already private.  False if
+        ``slot`` got preempted while allocating the copy."""
+        old = int(self._page_table[slot, logical])
+        if self.allocator.refcount(old) == 1:
+            return True
+        new = self._alloc_page(slot)
+        if new is None:
+            return False
+        with torch.no_grad():
+            self.caches = self.model.copy_page(self.caches, old, new)
+        self._page_table[slot, logical] = new
+        self.allocator.free([old])          # drop the shared reference
+        self.stats["cow_copies"] += 1
+        return True
+
     def _preempt(self, slot: int) -> None:
-        """Evict a slot: swap its pages and totals to the host pool if they
-        fit, else drop them and schedule recompute-from-prompt.  The
-        request re-enters the queue at its original priority."""
+        """Evict a slot: swap its private pages and totals to the host pool
+        if they fit, else drop them and schedule recompute-from-prompt.
+        The request re-enters the queue at its original priority."""
         s = self._slots.pop(slot)
         if slot in self._prefill_order:
             self._prefill_order.remove(slot)
         row = self._page_table[slot].copy()
         self.stats["preemptions"] += 1
         s.req.n_preempt += 1
-        if s.n_pages > 0 and self.swap.can_hold(s.n_pages):
+        n_sh = s.n_shared
+        n_priv = s.n_pages - n_sh
+        if s.n_pages > 0 and self.swap.can_hold(n_priv):
+            # shared pages are never swapped out: they stay alive under the
+            # pinned trie node and are mapped again on resume; only the
+            # private suffix and the totals go to the host
             state = _to_host(self.model.swap_out(
-                self.caches, row[:s.n_pages].copy(), slot))
-            self.swap.put(s.req.arrival, s.n_pages, state)
+                self.caches, row[n_sh:s.n_pages].copy(), slot))
+            self.swap.put(s.req.arrival, n_priv, state)
             self.stats["swap_outs"] += 1
             resume = _ResumeState(mode="swap", slot=s,
-                                  length=int(self._lengths[slot]))
+                                  length=int(self._lengths[slot]),
+                                  n_shared=n_sh,
+                                  shared_phys=row[:n_sh].copy())
         else:
             if s.n_pages > 0:
                 self.stats["recomputes"] += 1
@@ -487,6 +587,14 @@ class ServeEngine:
                 s.decoding = False
             s.pos = 0
             s.n_pages = 0
+            # the shared references go too (the cache's own keep the
+            # pages alive); the restarted prefill looks the trie up again
+            s.n_shared = 0
+            s.cache_node = None
+            s.snaps = None
+            if s.pinned_node is not None:
+                self._pcache.unpin(s.pinned_node)
+                s.pinned_node = None
             resume = _ResumeState(mode="recompute", slot=s)
         self.allocator.free(row[row > 0])
         self._page_table[slot] = 0
@@ -495,14 +603,23 @@ class ServeEngine:
 
     def _swap_in(self, slot: int, req: Request,
                  resume: _ResumeState) -> None:
-        """Restore a swapped-out request into ``slot`` on fresh pages."""
+        """Restore a swapped-out request into ``slot``: its shared prefix
+        mapped again, its private pages and totals copied back to fresh
+        pages."""
         s = resume.slot
         state = self.swap.pop(req.arrival)
+        n_sh = resume.n_shared
         row = np.zeros((self.max_pages,), np.int32)
-        for i in range(s.n_pages):
+        for lg in range(n_sh):
+            # the shared prefix never left the pool: the pinned trie node
+            # kept its pages alive
+            p = int(resume.shared_phys[lg])
+            self.allocator.incref(p)
+            row[lg] = p
+        for i in range(n_sh, s.n_pages):
             row[i] = self.allocator.alloc()
-        self.caches = self.model.swap_in(self.caches, row[:s.n_pages].copy(),
-                                         slot, state)
+        self.caches = self.model.swap_in(
+            self.caches, row[n_sh:s.n_pages].copy(), slot, state)
         self.stats["swap_ins"] += 1
         self._page_table[slot] = row
         self._lengths[slot] = resume.length
@@ -518,6 +635,77 @@ class ServeEngine:
         self._slots[slot] = s
         self._lengths[slot] = 0
         self._prefill_order.append(slot)
+        if self._pcache is not None:
+            self._try_prefix_hit(slot, s)
+
+    def _try_prefix_hit(self, slot: int, s: _Slot) -> None:
+        """Map the longest cached prefix of the slot's prompt (a reference
+        more per page, no allocation), restore its totals snapshot and
+        move prefill past the shared pages.  A hit over the whole prompt
+        still runs its last chunk, for the last token's logits, over the
+        shared pages, which the prefill copies first."""
+        pages, node = self._pcache.lookup(s.tokens)
+        if not pages:
+            self.stats["prefix_misses"] += 1
+            return
+        n_hit = len(pages)
+        pos = n_hit * self.page_size
+        if pos == len(s.tokens):
+            pos -= self.chunk
+            if pos <= 0:                    # nothing left to skip: a miss
+                self.stats["prefix_misses"] += 1
+                return
+        row = self._page_table[slot]
+        for lg, p in enumerate(pages):
+            self.allocator.incref(p)
+            row[lg] = p
+        s.n_pages = n_hit
+        s.n_shared = n_hit
+        s.cache_node = node
+        self._pcache.pin(node)              # held until _finish / recompute
+        s.pinned_node = node
+        s.pos = pos
+        self._lengths[slot] = pos
+        if self._slot_state:
+            totals = self._pcache.totals_at(node, pos // self.page_size)
+            with torch.no_grad():
+                self.caches = self.model.insert_totals(self.caches, slot,
+                                                       totals)
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_hit_tokens"] += pos
+
+    def _snapshot_totals(self, slot: int):
+        """A host copy of the slot's totals in every layer (None for a
+        stack without per-slot state): what a trie node at this chunk
+        boundary restores."""
+        if not self._slot_state:
+            return None
+        with torch.no_grad():
+            return _to_host(self.model.extract_totals(self.caches, slot))
+
+    def _insert_prefix(self, slot: int, s: _Slot) -> None:
+        """Index a completed prompt's chunk-aligned full pages in the trie
+        (the cache adds a reference to each newly indexed page; the slot
+        keeps its own until ``_finish``)."""
+        n_ins = (len(s.tokens) // self.chunk) * (self.chunk // self.page_size)
+        if n_ins == 0:
+            return
+        created, node = self._pcache.insert(
+            s.tokens, self._page_table[slot], n_ins, s.snaps or {},
+            self.allocator)
+        self.stats["prefix_inserts"] += created
+        if node is not None:
+            s.cache_node = node
+        s.snaps = None
+
+    def _available_pages(self) -> int:
+        """Pages admission can count on: the free list plus the cached
+        pages that evictions could reclaim (which happen lazily in
+        ``_alloc_page``)."""
+        n = self.allocator.available
+        if self._pcache is not None:
+            n += self._pcache.evictable_pages(self.allocator)
+        return n
 
     def _admit(self) -> None:
         free = [s for s in range(self.cfg.max_slots) if s not in self._slots]
@@ -528,10 +716,10 @@ class ServeEngine:
                 break
             if conservative:
                 need = self._worst_pages(len(req.prompt), req.max_new_tokens)
-                if self.allocator.available - self._outstanding_pages() \
+                if self._available_pages() - self._outstanding_pages() \
                         < need:
                     break
-            elif self.allocator.available < self._pages_needed_now(
+            elif self._available_pages() < self._pages_needed_now(
                     req, self.scheduler.peek_resume(req)):
                 break
             self.scheduler.pop_head()
@@ -558,6 +746,16 @@ class ServeEngine:
         n_chunk = min(self.chunk, len(s.tokens) - s.pos)
         lo = s.pos // self.page_size
         hi = (s.pos + n_chunk - 1) // self.page_size
+        if lo < s.n_shared:
+            # the chunk rewrites pages the slot shares with the trie (the
+            # re-run last chunk of a whole-prompt hit): copy them first.
+            # n_shared shrinks before the loop, so that a self-preemption
+            # in it treats the pages already copied as private
+            end = s.n_shared
+            s.n_shared = lo
+            for lg in range(lo, end):
+                if not self._cow_page(slot, lg):
+                    return                  # self-preempted; resumes later
         for lg in range(lo, hi + 1):
             if not self._ensure_page(slot, lg):
                 return                      # self-preempted; resumes later
@@ -573,7 +771,15 @@ class ServeEngine:
         self._lengths[slot] = s.pos
         self.stats["prefill_tokens"] += n_chunk
         self.stats["prefill_chunks"] += 1
+        if self._pcache is not None and s.pos % self.chunk == 0:
+            # a chunk boundary: the snapshot a later hit at this depth
+            # restores
+            if s.snaps is None:
+                s.snaps = {}
+            s.snaps[s.pos // self.page_size] = self._snapshot_totals(slot)
         if s.pos == len(s.tokens):          # prompt done: first token
+            if self._pcache is not None:
+                self._insert_prefix(slot, s)
             self._prefill_order.pop(0)
             if s.replay:
                 # recompute-resume: feed the already-sampled tokens back
@@ -787,6 +993,10 @@ class ServeEngine:
             self._emit(slot, int(tok[slot]))
 
     def _finish(self, slot: int) -> None:
+        s = self._slots[slot]
+        if s.pinned_node is not None:
+            self._pcache.unpin(s.pinned_node)
+            s.pinned_node = None
         self.allocator.free(self._page_table[slot][
             self._page_table[slot] > 0])
         self._page_table[slot] = 0
@@ -807,6 +1017,10 @@ class ServeEngine:
         self._admit()
         self._prefill_step()
         self._decode_step()
+        self.stats["swap_bytes"] = self.swap.used_bytes
+        self.stats["min_available"] = self.allocator.min_available
+        self.stats["pool_peak_pages"] = (self.allocator.num_pages - 1
+                                         - self.allocator.min_available)
         return len(self._slots)
 
     def run_to_completion(self, max_steps: int = 10_000,

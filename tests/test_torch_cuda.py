@@ -443,3 +443,142 @@ def test_paged_kernels_reject_what_they_do_not_take(card):
         KP.dense_decode_verify(dq, kp, kp, row[None],
                                torch.ones(1, 1, dtype=torch.int32,
                                           device="cuda"), block_k=64)
+
+
+# ---------------------------------------------------------------------------
+# GQA ratio 6 (internlm2-20b: 48 query heads over 8 KV heads) and pages
+# shared between page-table rows (the prefix cache)
+# ---------------------------------------------------------------------------
+
+def _routing(g, b, hkv, w, k_sel, n_pages, bk, lo, hi):
+    ints = lambda a, z, shape: torch.randint(
+        a, z, shape, generator=g, device="cuda", dtype=torch.int32)
+    rnd = lambda *shape: torch.rand(*shape, generator=g, device="cuda")
+    phys = ints(1, n_pages, (b, hkv, w, k_sel))
+    jlog = ints(0, 100, (b, hkv, w, k_sel))
+    valid = (rnd(b, hkv, w, k_sel) > 0.2).to(torch.int32)
+    comp = (rnd(b, hkv, w, k_sel) > 0.3).to(torch.int32) * valid
+    t_new = ints(lo * bk, hi * bk, (b, w))
+    return phys, jlog, valid, comp, t_new
+
+
+@pytest.mark.parametrize("quant,kv_quant,w", [
+    ("none", "none", 1), ("none", "none", 4), ("int8", "int8", 1),
+    ("none", "fp8", 4)])
+def test_sla2_decode_at_gqa_ratio_6(card, quant, kv_quant, w):
+    """internlm2-20b's decode shape: B 4, Hkv 8, n_rep 6, Dh 128, K_sel
+    26; the split kernel (f32 tiles) and the QAT kernel."""
+    g = card
+    b, hkv, n_rep, dh, bk, k_sel, n_pages = 4, 8, 6, 128, 64, 26, 400
+    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, torch.bfloat16)
+    q = torch.randn(b, hkv, w, n_rep, dh, generator=g,
+                    device="cuda").bfloat16()
+    phys, jlog, valid, comp, t_new = _routing(g, b, hkv, w, k_sel, n_pages,
+                                              bk, 50, 200)
+    rnd = lambda *shape: torch.rand(*shape, generator=g, device="cuda")
+    h = rnd(b, hkv, w, dh, dh) * 50
+    z = rnd(b, hkv, w, dh) * 1000 + 200
+    alpha = torch.randn(b, hkv, n_rep, generator=g, device="cuda")
+    args = (q, kp, vp, phys, jlog, valid, comp, t_new, h, z, alpha)
+    kw = dict(block_k=bk, quant_bits=quant, kv_quant=kv_quant, k_scale=ks,
+              v_scale=vs)
+    o = KP.sla2_decode_verify(*args, **kw)
+    torch.cuda.synchronize()
+    want = KP.sla2_decode_verify_plain(*args, **kw)
+    assert torch.isfinite(o).all() and _rel(o, want) < BOUND[quant]
+
+
+@pytest.mark.parametrize("w,window,prefix_len,kv_quant", [
+    (1, None, 0, "none"), (4, None, 0, "none"), (4, 256, 64, "int8"),
+    (1, 256, 0, "fp8")])
+def test_dense_decode_at_gqa_ratio_6(card, w, window, prefix_len, kv_quant):
+    """dense_decode at n_rep 6: a W 4 window puts 24 rows in a block."""
+    g = card
+    b, hkv, n_rep, dh, bk, max_p, n_pages = 4, 8, 6, 128, 64, 64, 300
+    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, torch.bfloat16)
+    q = torch.randn(b, hkv, w, n_rep, dh, generator=g,
+                    device="cuda").bfloat16()
+    table = torch.stack([(torch.randperm(n_pages - 1, generator=g,
+                                         device="cuda")[:max_p] + 1).int()
+                         for _ in range(b)])
+    lens = torch.tensor([4000, 1500, 65, 700], device="cuda")
+    t_new = (lens[:, None] + torch.arange(w, device="cuda") + 1).int()
+    kw = dict(block_k=bk, window=window, prefix_len=prefix_len,
+              kv_quant=kv_quant, k_scale=ks, v_scale=vs)
+    o = KP.dense_decode_verify(q, kp, vp, table, t_new, **kw)
+    torch.cuda.synchronize()
+    want = KP.dense_decode_verify_plain(q, kp, vp, table, t_new, **kw)
+    assert torch.isfinite(o).all() and _rel(o, want) < 2e-5
+
+
+@pytest.mark.parametrize("offset,kv_quant", [
+    (0, "none"), (1024, "none"), (7680, "none"), (3584, "int8")])
+def test_prefill_at_gqa_ratio_6(card, offset, kv_quant):
+    g = card
+    hkv, n_rep, dh, bk, c = 8, 6, 128, 64, 512
+    used = (offset + c) // bk
+    n_pages = used + 40
+    kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, torch.bfloat16)
+    q = torch.randn(hkv * n_rep, c, dh, generator=g, device="cuda").bfloat16()
+    row = torch.zeros(used + 8, dtype=torch.int32, device="cuda")
+    row[:used] = (torch.randperm(n_pages - 1, generator=g,
+                                 device="cuda")[:used] + 1).int()
+    kw = dict(offset=offset, block_k=bk, n_rep=n_rep, kv_quant=kv_quant,
+              k_scale=ks, v_scale=vs)
+    o = KP.paged_flash_prefill(q, kp, vp, row, **kw)
+    torch.cuda.synchronize()
+    assert _rel(o, KP.paged_flash_prefill_plain(q, kp, vp, row, **kw)) < 2e-5
+
+
+@pytest.mark.parametrize("n_rep", [5, 6])
+def test_paged_kernels_over_shared_and_copied_pages(card, n_rep):
+    """A prefix cache hit maps one physical prefix into several page-table
+    rows, and copy-on-write moves a page to another physical id: the
+    kernels' outputs depend on the pages' contents, never on their ids or
+    on who else maps them (bit for bit)."""
+    g = card
+    hkv, dh, bk, c, n_pages = 8, 128, 64, 512, 300
+    kp, vp, _, _ = _pool(g, n_pages, hkv, bk, dh, "none", torch.bfloat16)
+    offset = 3584                                # a whole-prompt hit's rerun
+    used = (offset + c) // bk
+    base = (torch.randperm(n_pages // 2 - 1, generator=g, device="cuda")
+            [:used] + 1).int()
+    moved = base.clone()
+    moved[offset // bk:] += n_pages // 2         # the copied last chunk
+    kp[moved.long()], vp[moved.long()] = kp[base.long()], vp[base.long()]
+    q = torch.randn(hkv * n_rep, c, dh, generator=g, device="cuda").bfloat16()
+    kw = dict(offset=offset, block_k=bk, n_rep=n_rep)
+    o1 = KP.paged_flash_prefill(q, kp, vp, base, **kw)
+    o2 = KP.paged_flash_prefill(q, kp, vp, moved, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    assert _rel(o1, KP.paged_flash_prefill_plain(q, kp, vp, base, **kw)) \
+        < 2e-5
+    # decode: four slots, two of them on the same physical prefix
+    b, w, t = 4, 4, offset + c
+    table = torch.stack([base, base, moved, base]).contiguous()
+    qd = torch.randn(1, hkv, w, n_rep, dh, generator=g,
+                     device="cuda").bfloat16().expand(b, -1, -1, -1, -1)
+    qd = qd.contiguous()
+    t_new = (t + torch.arange(w, device="cuda") + 1 - w).int()
+    t_new = t_new[None].expand(b, -1).contiguous()
+    o = KP.dense_decode_verify(qd, kp, vp, table, t_new, block_k=bk)
+    torch.cuda.synchronize()
+    assert torch.equal(o[0], o[1]) and torch.equal(o[0], o[2])
+    k_sel = 26
+    phys, jlog, valid, comp, _ = _routing(g, 1, hkv, w, k_sel, used, bk, 1, 2)
+    jlog = torch.randint(0, used, jlog.shape, generator=g, device="cuda",
+                         dtype=torch.int32)
+    phys_b = base.long()[jlog.long()].int()
+    phys_m = moved.long()[jlog.long()].int()
+    rnd = lambda *shape: torch.rand(*shape, generator=g, device="cuda")
+    h = rnd(1, hkv, w, dh, dh) * 50
+    z = rnd(1, hkv, w, dh) * 1000 + 200
+    alpha = torch.randn(1, hkv, n_rep, generator=g, device="cuda")
+    tn = t_new[:1]
+    args = (qd[:1], kp, vp)
+    rest = (jlog, valid, comp, tn, h, z, alpha)
+    o1 = KP.sla2_decode_verify(*args, phys_b, *rest, block_k=bk)
+    o2 = KP.sla2_decode_verify(*args, phys_m, *rest, block_k=bk)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)

@@ -273,3 +273,96 @@ def test_dispatch_and_what_is_not_ported(ref):
             acfg, mechanism="moba"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(tsmoke("qwen3_14b", layer_kinds=("moe",)))
+
+
+# ---------------------------------------------------------------------------
+# internlm2-20b: 6 query heads a KV head, no qk-norm
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def internlm2():
+    """(jax model, jax params, port model, port params) of the internlm2
+    smoke config, the reference's params carried across."""
+    jm = jbuild(get_smoke_config("internlm2_20b"))
+    jp = jm.init(jax.random.PRNGKey(1))
+    tm = build_model(tsmoke("internlm2_20b"))
+    tree = jax.tree.map(np.asarray, jp)
+    return jm, jp, tm, lm_params_from_numpy(tree, tm.cfg, device="cpu")
+
+
+def test_internlm2_config_is_the_reference_config():
+    from repro.configs import get_config as jget
+    assert "internlm2_20b" in ARCH_NAMES
+    for j, t in ((jget("internlm2_20b"), get_config("internlm2_20b")),
+                 (get_smoke_config("internlm2_20b"),
+                  tsmoke("internlm2_20b"))):
+        for f in dataclasses.fields(t):
+            if hasattr(j, f.name):
+                assert getattr(t, f.name) == getattr(j, f.name), f.name
+    cfg = get_config("internlm2_20b")
+    assert cfg.num_heads // cfg.num_kv_heads == 6 and not cfg.qk_norm
+    build_model(cfg)                         # the port takes the config
+
+
+def test_internlm2_forward_logits_match_the_reference(internlm2):
+    """Full-sequence forward (quant none), logits of every position."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as TT
+    jm, jp, tm, tp = internlm2
+    jcfg = dataclasses.replace(jm.cfg, quant_bits="none")
+    tcfg = dataclasses.replace(tm.cfg, quant_bits="none")
+    toks = np.random.default_rng(4).integers(1, 256, (2, 64)).astype(
+        np.int32)
+    hidden, _ = JT.forward(jp, jcfg, jnp.asarray(toks))
+    want = JT.logits_from_hidden(jp, jcfg, hidden)
+    with torch.no_grad():
+        h, _ = TT.forward(tp, tcfg, torch.from_numpy(toks))
+        got = TT.logits_from_hidden(tp, tcfg, h)
+    assert got.shape == want.shape and _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("impl", ["gather", "fused"])
+def test_internlm2_prefill_and_decode_match_the_reference(internlm2, impl):
+    logits, tc, jc = _serve_both(internlm2, impl)
+    for phase, t, j in logits:
+        assert t.shape == j.shape
+        assert _rel(t, j) < (1e-5 if phase == "prefill" else 1e-3), phase
+    for li, lc in enumerate(tc["layers"]):
+        for key in ("k_pages", "pooled_pages", "h_tot", "z_tot"):
+            want = np.asarray(jc["groups"]["l0"]["attn"][key][li])
+            assert _rel(lc[key], want) < 1e-3, (li, key)
+
+
+@pytest.mark.parametrize("impl", ["gather", "fused"])
+def test_internlm2_engine_tokens_match_the_reference(internlm2, impl):
+    """Greedy tokens of the paged engines, mixed lengths and a late
+    joiner, with a whole-prompt prefix hit on the second wave."""
+    from repro.serve import EngineConfig as JEngineConfig
+    from repro.serve import Request as JRequest
+    from repro.serve import ServeEngine as JServeEngine
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    jm, jp, tm, tp = internlm2
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 256, n).astype(np.int32)
+               for n in (7, 45, 64, 21)]
+    outs = []
+    for eng, req in (
+            (JServeEngine(jm, JEngineConfig(
+                max_slots=3, max_len=160, prefill_chunk=32,
+                paged_impl="gather", prefix_cache=True)), JRequest),
+            (ServeEngine(tm, EngineConfig(
+                max_slots=3, max_len=160, prefill_chunk=32, paged_impl=impl,
+                prefix_cache=True), device="cpu"), Request)):
+        eng.load(jp if req is JRequest else tp)
+        for i, p in enumerate(prompts[:3]):
+            eng.submit(req(uid=i, prompt=p, max_new_tokens=8))
+        for _ in range(3):
+            eng.step()
+        eng.submit(req(uid=3, prompt=prompts[3], max_new_tokens=8))
+        eng.run_to_completion(max_steps=2000)
+        eng.submit(req(uid=4, prompt=prompts[2].copy(), max_new_tokens=8))
+        eng.run_to_completion(max_steps=2000)
+        outs.append(({r.uid: r.output for r in eng.completed},
+                     eng.stats["prefix_hits"], eng.stats["cow_copies"]))
+    assert outs[0] == outs[1]
+    assert outs[1][0][4] == outs[1][0][2] and outs[1][1:] == (1, 2)
