@@ -185,7 +185,8 @@ run outside a checkout of the repository; each prints its wall time):
              window on a shared page, tokens identical to a cache-off run;
 25. lm-internlm2  internlm2-20b at full width and depth (48 layers, 48
              query / 8 KV heads: n_rep 6, random weights from the seed),
-             after the qwen3 weights are freed: layer 0's sla2_decode (W 1,
+             after the qwen3 weights are freed (phase_lm_gqa, which phase
+             27 runs too): layer 0's sla2_decode (W 1,
              and W 4 from the linear drafter), dense_decode (W 1, and W 4
              from the n-gram drafter, on the dense model of the same
              tensors) and paged_prefill (offset 1024, and the 8192-token
@@ -193,10 +194,36 @@ run outside a checkout of the repository; each prints its wall time):
              beside their bounds and SDPA; the lm-serve traffic at max_len
              16384 (cut from 32768 to fit the weights and pool) through
              the fused engine (48 launches a chunk and a dispatch) and the
-             gather engine, tokens under compare_tokens' rule.
+             gather engine, tokens under compare_tokens' rule;
+26. lm-llama4  llama4-maverick-400b at full width (d_model 5120, 40 / 8
+             heads, 128 experts top-1 of d_ff 8192 plus one shared
+             expert, capacity 1.25, random weights from the seed), depth
+             cut from 48 to one (dense, moe) group of 2 layers (one MoE
+             layer's routed experts take 32.2 GB in bf16: two groups would
+             not fit 80 GB); the lm-serve traffic through the fused engine
+             with speculative "off" and "linear" (draft_len 3) and through
+             the gather engine, tokens under compare_tokens' rule (a token
+             may also part where the MoE routed or dropped its row otherwise
+             in the two runs: the capacity counts the rows of each call, 16
+             in a verify window against 4 in a decode), launches 2 a chunk
+             and a dispatch; the MoE layer's own ms by input
+             shape (CUDA events), and for the first decode batch and the
+             first prefill chunk its capacity, tokens per expert and
+             dropped (token, slot) pairs; then lm_loss (no grad) on one
+             8192-token sequence with sla2_impl "kernel" (2
+             sparse_flash_fwd launches) and "gather": CE and aux finite and
+             within 1e-2 relative;
+27. lm-llama3  llama3-405b at full width (128 query / 8 KV heads: n_rep
+             16, the paged kernels' RMAX; a W 4 dense window is 64 rows, the
+             split kernel's SPLIT_ROWS), depth cut from 126 to 4 layers:
+             phase 25 at max_len 32768 (4 launches a chunk and a
+             dispatch).  At 6 layers (55.1 GB of weights with the f32
+             head) the fused engine fits, but the gather engine's chunk
+             attention over all 32768 positions of 128 heads takes about
+             28 GiB of f32 scores and ran out of memory.
 
 Phases run in the order 1-4, 6, 5, 7-11, 13-15, 22, 23, 12, 16, 24, 17,
-25, 18-21.
+25, 26, 27, 18-21.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -232,6 +259,9 @@ LM_CKPT_N = 1024            # lm-train-context's Trainer sequences
 PREFIX_SYS = 4096           # lm-prefix system prompts: 64 pages, 8 chunks
 PREFIX_NEW = 16             # lm-prefix new tokens per request
 INTERN_MAX_LEN = 16384      # lm-internlm2: cut from 32768 to fit 80 GB
+LLAMA4_LAYERS = 2           # lm-llama4: one (dense, moe) group, cut from 48
+LLAMA3_LAYERS = 4           # lm-llama3: cut from 126 to fit 80 GB with
+                            # the gather engine's f32 chunk scores
 BASELINE_N_LAT = 4096       # sla / sparse_only latents: O(N^2), cut from 32768
 BF16_TWO_ULPS = 2 ** -7
 
@@ -1295,11 +1325,13 @@ def record_rows(eng, uid, rows):
     eng._sample = hooked
 
 
-def compare_tokens(tag, want, got, margins):
+def compare_tokens(tag, want, got, margins, moe_rows=None):
     """Greedy tokens ``got`` against ``want`` ({uid: tokens}).  A request
     may differ only where the ``want`` run's top-2 margin is below the
-    bf16 resolution of its top logit; its comparison stops there.
-    Returns those stops; raises on any other difference."""
+    bf16 resolution of its top logit or, with ``moe_rows`` (the two runs'
+    ``wrap_moe`` rows), where the MoE routed or dropped that token's row
+    otherwise in the two runs; its comparison stops there.  Returns those
+    stops; raises on any other difference."""
     stops = []
     for uid, ref in sorted(want.items()):
         have = got[uid]
@@ -1311,13 +1343,21 @@ def compare_tokens(tag, want, got, margins):
                 continue
             margin, top = margins[(uid, i)]
             res = bf16_resolution(top)
-            if not margin < res:
+            stop = {"uid": uid, "pos": i, "margin": margin,
+                    "top_logit": top, "bf16_resolution": res}
+            if moe_rows is not None:
+                stop["moe_rows"] = [r.get((uid, i)) for r in moe_rows]
+            moe_differs = moe_rows is not None and \
+                stop["moe_rows"][0] != stop["moe_rows"][1]
+            if not (margin < res or moe_differs):
                 raise AssertionError(
                     f"[{tag}] request {uid} differs at token {i} ({a} vs "
                     f"{b}) where the top-2 margin {margin:.4g} is not below "
-                    f"the bf16 resolution {res:.4g} of its logit {top:.4g}")
-            stops.append({"uid": uid, "pos": i, "margin": margin,
-                          "top_logit": top, "bf16_resolution": res})
+                    f"the bf16 resolution {res:.4g} of its logit {top:.4g}"
+                    + ("" if moe_rows is None else
+                       f" and the MoE treated its row alike "
+                       f"{stop['moe_rows'][0]}"))
+            stops.append(stop)
             break
     return stops
 
@@ -2210,7 +2250,8 @@ def phase_lm_prefix_context():
     return stats
 
 
-def kernel_case(tag, fn, plain, args, kw, bound, library=None, iters=50):
+def kernel_case(phase, tag, fn, plain, args, kw, bound, library=None,
+                iters=50):
     """Hold one captured call of a wrapper against its plain version and
     time it: a loop of calls and, for the decode kernels, calls replayed
     from a CUDA graph.  Returns (max abs err, ms, ms from a graph or None,
@@ -2222,14 +2263,14 @@ def kernel_case(tag, fn, plain, args, kw, bound, library=None, iters=50):
         po = plain(*args, **kw)
         err, abs_err = rel_err(o, po), float((o - po).abs().max())
         if not err < BOUNDS["none"]:
-            raise AssertionError(f"[lm-internlm2] {tag} disagrees with its "
-                                 f"plain version: rel err {err:.3e}")
+            raise AssertionError(f"[{phase}] {tag} disagrees with its plain "
+                                 f"version: rel err {err:.3e}")
         ms = cuda_ms(lambda: fn(*args, **kw), iters=iters)
         ms_graph = (graph_ms(lambda: fn(*args, **kw)) if iters > 10
                     else None)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=2, warmup=1)
     lib = library() if library is not None else None
-    log(f"[lm-internlm2] {tag}: rel max err {err:.3e} (bound 2e-5), max abs "
+    log(f"[{phase}] {tag}: rel max err {err:.3e} (bound 2e-5), max abs "
         f"err {abs_err:.3e}; kernel {ms:.4f} ms in a loop of calls"
         + (f" ({ms_graph:.4f} ms from a CUDA graph)" if ms_graph else "")
         + f", plain {plain_ms:.3f} ms, bound {bound:.4f} ms, "
@@ -2239,20 +2280,19 @@ def kernel_case(tag, fn, plain, args, kw, bound, library=None, iters=50):
     return abs_err, ms, ms_graph, plain_ms, bound, lib
 
 
-def phase_lm_internlm2():
-    """internlm2-20b at full width and depth (48 layers, 48 query / 8 KV
-    heads: n_rep 6), bf16, random weights: layer 0's paged kernels against
-    their plain versions and timed; the lm-serve traffic at max_len
-    INTERN_MAX_LEN through the fused engine (48 launches a dispatch and a
-    chunk) and the gather engine (tokens under the margin rule)."""
+def phase_lm_gqa(phase, cfg, max_len):
+    """An SLA2 LM at full width, bf16, random weights, served at
+    ``max_len``: layer 0's paged kernels against their plain versions and
+    timed; the lm-serve traffic through the fused engine (n_layers
+    launches a dispatch and a chunk) and the gather engine (tokens under
+    the margin rule).  lm-internlm2 runs it at n_rep 6, lm-llama3 at
+    n_rep 16."""
     import torch
-    from repro_torch.configs import internlm2_20b
     from repro_torch.kernels import sla2_decode_paged as KP
     from repro_torch.models import attention as A
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import _pool_page_bytes
-    model = build_model(internlm2_20b.config())
-    cfg = model.cfg
+    model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(SEED, device=DEV)
     n_params = sum(p.numel() for p in params.parameters())
@@ -2262,7 +2302,7 @@ def phase_lm_internlm2():
         f"({n_params * 2 / 1e9:.1f} GB in bf16), {cfg.n_layers} layers, "
         f"{cfg.num_heads} / {hkv} heads (n_rep {n_rep}), init "
         f"{time.perf_counter() - t0:.1f} s")
-    over = dict(max_len=INTERN_MAX_LEN)
+    over = dict(max_len=max_len)
     full = lambda e: sum(s.decoding for s in e._slots.values()) == LM_SLOTS
     cap = capture_layer0(model, params, **over)
     cap.update(capture_layer0(model, params, {
@@ -2274,7 +2314,10 @@ def phase_lm_internlm2():
         "dense_decode_fused": lambda e, a, k: full(e)}, **over))
     cap.update(capture_layer0(dense_model, dense_p, {
         "dense_decode_verify": lambda e, a, k: full(e)
-        and a[0].shape[2] == 4}, speculative="ngram", draft_len=3, **over))
+        and a[0].shape[2] == 4}, new_tokens=64, speculative="ngram",
+        draft_len=3, **over))
+    del dense_model, dense_p          # and the f32 head copy it made
+    free_cuda()
 
     # the lm-serve traffic, its last 8192-token chunk captured
     last = {}
@@ -2293,8 +2336,7 @@ def phase_lm_internlm2():
             return run
         A.fused_entry_fn = capturing
         pool = _pool_page_bytes(eng.caches) * eng.allocator.num_pages
-        log(f"[lm-internlm2] engine of {LM_SLOTS} slots at max_len "
-            f"{INTERN_MAX_LEN} (cut from {LM_MAX_LEN}): "
+        log(f"[{phase}] engine of {LM_SLOTS} slots at max_len {max_len}: "
             f"{eng.allocator.num_pages} pages, pool {pool / 1e9:.2f} GB")
 
     margins = {}
@@ -2305,31 +2347,31 @@ def phase_lm_internlm2():
             on_engine=capture_last, **over)
     finally:
         A.fused_entry_fn = entry
-    check_launches("lm-internlm2", run, cfg.n_layers, "sla2_decode_paged",
+    check_launches(phase, run, cfg.n_layers, "sla2_decode_paged",
                    "decode_steps")
-    log(f"[lm-internlm2] ms per prefill chunk "
+    log(f"[{phase}] ms per prefill chunk "
         f"{[round(t, 1) for t in run['prefill_ms']]}")
-    log(f"[lm-internlm2] ms per decode step by active slots (median, "
+    log(f"[{phase}] ms per decode step by active slots (median, "
         f"count): {run['decode_ms']}; peak memory "
         f"{run['peak'] / 2**30:.2f} GiB")
     gather = serve_lm(model, params, {}, paged_impl="gather", **over)
-    stops = compare_tokens("lm-internlm2 gather", run["tokens"],
+    stops = compare_tokens(f"{phase} gather", run["tokens"],
                            gather["tokens"], margins)
-    log(f"[lm-internlm2] gather engine: {gather['wall']:.1f} s, peak memory "
+    log(f"[{phase}] gather engine: {gather['wall']:.1f} s, peak memory "
         f"{gather['peak'] / 2**30:.2f} GiB; greedy tokens equal the fused "
         f"engine's up to the stops {stops}")
 
     res = {"launches": run["launches"], "stops": stops}
     args, kw = cap["sla2_decode_fused"]
     res["decode"] = kernel_case(
-        f"sla2_decode W 1 q{tuple(args[0].shape)} t_new "
+        phase, f"sla2_decode W 1 q{tuple(args[0].shape)} t_new "
         f"{args[7].tolist()}, valid entries {int(args[5].sum())}/"
         f"{args[5].numel()}, complete {int(args[6].sum())}",
         KP.sla2_decode_fused,
         KP.sla2_decode_fused_plain, args, kw, decode_bound_ms(args))
     args, kw = cap["sla2_decode_verify"]
     res["decode_w4"] = kernel_case(
-        f"sla2_decode W 4 q{tuple(args[0].shape)}, valid entries "
+        phase, f"sla2_decode W 4 q{tuple(args[0].shape)}, valid entries "
         f"{int(args[5].sum())}/{args[5].numel()}", KP.sla2_decode_verify,
         KP.sla2_decode_verify_plain, args, kw, decode_bound_ms(args))
     for key, name in (("dense", "dense_decode_fused"),
@@ -2339,7 +2381,7 @@ def phase_lm_internlm2():
         qv = q if q.dim() == 5 else q[:, :, None]
         tv = t_new if t_new.dim() == 2 else t_new[:, None]
         res[key] = kernel_case(
-            f"{name} q{tuple(q.shape)} t_new {t_new.tolist()}",
+            phase, f"{name} q{tuple(q.shape)} t_new {t_new.tolist()}",
             getattr(KP, name), getattr(KP, name + "_plain"), args, kw,
             dense_bound_ms(qv, kp, table, tv, bk),
             lambda: dense_sdpa_ms(qv, kp, vp, table, tv))
@@ -2350,14 +2392,242 @@ def phase_lm_internlm2():
                                     kw["prefix_len"])
         bound = max(ops_ / PEAK_BF16_OPS, nbytes / PEAK_BYTES) * 1e3
         res[key] = kernel_case(
-            f"paged_prefill offset {kw['offset']} q{tuple(args[0].shape)}",
+            phase, f"paged_prefill offset {kw['offset']} "
+            f"q{tuple(args[0].shape)}",
             KP.paged_flash_prefill, KP.paged_flash_prefill_plain, args, kw,
             bound, lambda: sdpa_ms(args[0], args[1], args[2], args[3],
                                    kw["offset"], kw["n_rep"]), iters=10)
         res[key + "_offset"] = int(kw["offset"])
-    del cap, last, params, dense_p
+    del cap, last, params
     free_cuda()
     return res
+
+
+def phase_lm_internlm2():
+    """internlm2-20b at full width and depth (48 layers, 48 query / 8 KV
+    heads: n_rep 6) at max_len INTERN_MAX_LEN."""
+    from repro_torch.configs import internlm2_20b
+    return phase_lm_gqa("lm-internlm2", internlm2_20b.config(),
+                        INTERN_MAX_LEN)
+
+
+def phase_lm_llama3():
+    """llama3-405b at full width (128 query / 8 KV heads: n_rep 16, the
+    paged kernels' RMAX), depth cut to LLAMA3_LAYERS, at max_len
+    LM_MAX_LEN."""
+    from repro_torch.configs import llama3_405b
+    return phase_lm_gqa("lm-llama3", llama3_405b.config(
+        n_layers=LLAMA3_LAYERS), LM_MAX_LEN)
+
+
+def wrap_moe(records, inputs=None, eng=None, rows=None):
+    """Wrap ``models.moe.moe_ffn``: CUDA events around every call, kept in
+    ``records`` as (input shape, start, end); the first input of each
+    shape cloned into ``inputs``; with an engine, ``rows`` {(uid, output
+    index): (expert ids, kept)} of every row whose logits ``eng`` samples
+    (the last row of a prompt's last chunk, a decoding slot's decode row
+    or verify window rows; the drafter's rows are not sampled).  Returns
+    the restore function."""
+    import torch
+    from repro_torch.models import moe as MOE
+    ffn = MOE.moe_ffn
+
+    def sampled_rows(x):
+        """[(row of x, (uid, output index))] of the rows ``eng`` samples."""
+        b, w, _ = x.shape
+        if b == 1 and w == eng.chunk:               # a prefill chunk
+            st = eng._slots[eng._prefill_order[0]]
+            n = min(eng.chunk, len(st.tokens) - st.pos)
+            last = st.pos + n == len(st.tokens) and not st.replay
+            return [(n - 1, (st.req.uid, 0))] if last else []
+        if w == 1 and eng.cfg.speculative != "off":
+            return []                               # a draft step
+        return [(s * w + j, (st.req.uid, len(st.req.output) + j))
+                for s, st in eng._slots.items() if st.decoding
+                for j in range(w)]
+
+    def timed(p, x, cfg):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ffn(p, x, cfg)
+        end.record()
+        records.append((tuple(x.shape), start, end))
+        if inputs is not None:
+            inputs.setdefault(tuple(x.shape), x.detach().clone())
+        if rows is not None:
+            want = sampled_rows(x)
+            if want:
+                _, ids, _, _, keep, _ = MOE.route(
+                    p, x.detach().reshape(-1, x.shape[-1]), cfg)
+                ids = ids.tolist()
+                keep = keep.reshape(len(ids), -1).tolist()
+                for r, key in want:
+                    rows[key] = (tuple(ids[r]), tuple(keep[r]))
+        return out
+
+    MOE.moe_ffn = timed
+    return lambda: setattr(MOE, "moe_ffn", ffn)
+
+
+def moe_ms_by_shape(records):
+    """{input shape: (median ms, calls)} of the timed MoE calls."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    by = {}
+    for shape, start, end in records:
+        by.setdefault(shape, []).append(start.elapsed_time(end))
+    return {k: (round(float(np.median(v)), 3), len(v))
+            for k, v in sorted(by.items())}
+
+
+def phase_lm_llama4():
+    """llama4-maverick-400b at full width, depth cut to one (dense, moe)
+    group (see the module docstring, phase 26)."""
+    import torch
+    from repro_torch.configs import llama4_maverick_400b
+    from repro_torch.kernels import sla2_decode_paged as KP
+    from repro_torch.kernels.sla2_fwd import sparse_flash_fwd
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.api import build_model
+    model = build_model(llama4_maverick_400b.config(n_layers=LLAMA4_LAYERS))
+    cfg, mcfg = model.cfg, model.cfg.moe
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    moe_p = next(lp.moe for lp in params.layers if lp.moe is not None)
+    experts = moe_p.w_in.numel() + moe_p.w_out.numel()
+    log(f"[model] {cfg.name}: {n_params / 1e9:.3f} B params "
+        f"({n_params * 2 / 1e9:.1f} GB in bf16; the routed experts of the "
+        f"MoE layer {experts * 2 / 1e9:.1f} GB), {cfg.n_layers} layers "
+        f"(cut from 48), {cfg.num_heads} / {cfg.num_kv_heads} heads, "
+        f"{mcfg.num_experts} experts top-{mcfg.top_k} + {mcfg.num_shared} "
+        f"shared, init {time.perf_counter() - t0:.1f} s")
+    counters = {"sla2_decode_paged": KP.sla2_decode_verify,
+                "paged_flash_prefill": KP.paged_flash_prefill}
+    margins, runs, moe_ms, moe_rows, inputs = {}, {}, {}, {}, {}
+    restore = []
+    for name, over, dispatch in (
+            ("off", {}, "decode_steps"),
+            ("linear", dict(speculative="linear", draft_len=3),
+             "spec_steps"),
+            ("gather", dict(paged_impl="gather"), None)):
+        records, moe_rows[name] = [], {}
+        on_engine = lambda eng, name=name: restore.append(wrap_moe(
+            records, inputs if name == "off" else None, eng, moe_rows[name]))
+        try:
+            runs[name] = serve_lm(
+                model, params, counters if dispatch else {},
+                margins=margins if name == "off" else None,
+                on_engine=on_engine, **over)
+        finally:
+            while restore:
+                restore.pop()()
+        run = runs[name]
+        moe_ms[name] = moe_ms_by_shape(records)
+        if dispatch:
+            check_launches(f"lm-llama4 {name}", run, cfg.n_layers,
+                           "sla2_decode_paged", dispatch)
+        else:
+            log(f"[lm-llama4 gather] {run['stats']['prefill_chunks']} "
+                f"prefill chunks, {run['stats']['decode_steps']} decode "
+                f"steps, {run['wall']:.1f} s")
+        if name != "off":
+            stops = compare_tokens(f"lm-llama4 {name}", runs["off"]["tokens"],
+                                   run["tokens"], margins,
+                                   (moe_rows["off"], moe_rows[name]))
+            run["stops"] = stops
+            log(f"[lm-llama4 {name}] greedy tokens equal the off run's up "
+                f"to the stops {stops}")
+        dropped = sum(not all(k) for _, k in moe_rows[name].values())
+        log(f"[lm-llama4 {name}] ms per prefill chunk median "
+            f"{sorted(run['prefill_ms'])[len(run['prefill_ms']) // 2]:.1f} "
+            f"over {len(run['prefill_ms'])}; ms per dispatch by active slots "
+            f"(median, count): {run['decode_ms']}; the MoE layer's ms by "
+            f"input shape (median, calls): {moe_ms[name]}; sampled rows "
+            f"with a dropped pair {dropped} of {len(moe_rows[name])}; peak "
+            f"memory {run['peak'] / 2**30:.2f} GiB")
+    log(f"[lm-llama4] tokens: " + "; ".join(
+        f"{uid} (prompt {runs['off']['prompts'][uid]}): {toks}"
+        for uid, toks in sorted(runs["off"]["tokens"].items())))
+    st = runs["linear"]["stats"]
+    log(f"[lm-llama4 linear] drafted {st['spec_drafted']}, accepted "
+        f"{st['spec_accepted']} in {st['spec_steps']} verify dispatches")
+    routing = {}
+    for shape, x in sorted(inputs.items()):
+        if shape not in ((LM_SLOTS, 1, cfg.d_model),
+                         (1, LM_CHUNK, cfg.d_model)):
+            continue
+        with torch.no_grad():
+            _, ids, _, cap, keep, _ = MOE.route(
+                moe_p, x.reshape(-1, cfg.d_model), mcfg)
+        per_e = torch.bincount(ids.reshape(-1), minlength=mcfg.num_experts)
+        routing[shape] = {"capacity": cap,
+                          "experts_reached": int((per_e > 0).sum()),
+                          "max_tokens_per_expert": int(per_e.max()),
+                          "dropped_pairs": int((~keep).sum())}
+        log(f"[lm-llama4] MoE input {shape} (first of its shape in the off "
+            f"run): capacity {cap}; tokens per reached expert "
+            f"{sorted(per_e[per_e > 0].tolist(), reverse=True)}; dropped "
+            f"(token, slot) pairs {int((~keep).sum())} of {keep.numel()}")
+    del inputs
+
+    # the full-sequence forward: lm_loss on one 8192-token sequence
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 40)
+    seq = torch.randint(0, cfg.vocab_size, (1, LM_PROMPTS[0] + 1),
+                        generator=g, device=DEV)
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    fwd = {}
+    for impl in ("kernel", "gather"):
+        records = []
+        restore = wrap_moe(records)
+        sparse_flash_fwd.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with torch.no_grad():
+                _, met = model.with_overrides(sla2_impl=impl).loss(params,
+                                                                   batch)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        fwd[impl] = {"ce": float(met["ce"]), "aux": float(met["aux"]),
+                     "launches": sparse_flash_fwd.launches,
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "moe_ms": moe_ms_by_shape(records),
+                     "peak": torch.cuda.max_memory_allocated()}
+        log(f"[lm-llama4 forward] lm_loss, sla2_impl {impl!r}, one "
+            f"{LM_PROMPTS[0]}-token sequence: ce {fwd[impl]['ce']:.6f} aux "
+            f"{fwd[impl]['aux']:.6f}; sparse_flash_fwd launches "
+            f"{fwd[impl]['launches']}; {fwd[impl]['ms']:.1f} ms (MoE "
+            f"{fwd[impl]['moe_ms']}); peak memory "
+            f"{fwd[impl]['peak'] / 2**30:.2f} GiB")
+    k, gth = fwd["kernel"], fwd["gather"]
+    ce_rel = abs(k["ce"] - gth["ce"]) / abs(gth["ce"])
+    aux_rel = abs(k["aux"] - gth["aux"]) / abs(gth["aux"])
+    log(f"[lm-llama4 forward] kernel vs gather: ce rel err {ce_rel:.3e}, "
+        f"aux rel err {aux_rel:.3e} (bound 1e-2 each)")
+    if not all(math.isfinite(v) for r in fwd.values()
+               for v in (r["ce"], r["aux"])):
+        raise AssertionError("[lm-llama4 forward] a non-finite loss")
+    if not (ce_rel < 1e-2 and aux_rel < 1e-2):
+        raise AssertionError("[lm-llama4 forward] kernel and gather losses "
+                             "disagree")
+    if k["launches"] != cfg.n_layers or gth["launches"] != 0:
+        raise AssertionError(f"[lm-llama4 forward] sparse_flash_fwd launches "
+                             f"{k['launches']} / {gth['launches']}, want "
+                             f"{cfg.n_layers} / 0")
+    del params, moe_p
+    free_cuda()
+    return {"launches": {key: runs["off"]["launches"][key]
+                         + runs["linear"]["launches"][key]
+                         for key in counters},
+            "forward_launches": k["launches"], "routing": routing,
+            "moe_ms": moe_ms, "forward": fwd}
 
 
 def lm_layer0_qkv(model, params, tokens):
@@ -3047,6 +3317,8 @@ def main() -> int:
     del lm_params, dense_p
     free_cuda()
     lm_intern = timed("lm-internlm2", phase_lm_internlm2)
+    lm_llama4 = timed("lm-llama4", phase_lm_llama4)
+    lm_llama3 = timed("lm-llama3", phase_lm_llama3)
     timed("lm-static-context", phase_lm_static_context)
     lm_train = timed("lm-train", phase_lm_train)
     timed("lm-train-context", phase_lm_train_context)
@@ -3065,7 +3337,9 @@ def main() -> int:
                              "train": train["sparse_flash_fwd"],
                              "lm_static_wave_prefill": lm_static["launches"],
                              "lm_train": lm_train["launches"][
-                                 "sparse_flash_fwd"]},
+                                 "sparse_flash_fwd"],
+                             "lm_llama4_forward":
+                                 lm_llama4["forward_launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "gather_floor_ms": floor,
@@ -3111,14 +3385,15 @@ def main() -> int:
     on_prefix = lambda run, key: (run["off"]["launches"][key]
                                   + run["on"]["launches"][key])
 
-    def n_rep6(key, w4_key=None):
-        """The lm-internlm2 numbers of one kernel (n_rep 6, 48 layers)."""
-        err, ms_, graph, plain_, bound, lib = lm_intern[key]
+    def gqa(res, key, w4_key=None):
+        """The lm-internlm2 (n_rep 6) or lm-llama3 (n_rep 16) numbers of
+        one kernel."""
+        err, ms_, graph, plain_, bound, lib = res[key]
         out = {"max_abs_err": err, "ms": ms_, "ms_graph": graph,
                "plain_ms": plain_, "bound_ms": bound,
                "library_ms": lib[0] if isinstance(lib, tuple) else lib}
         if w4_key is not None:
-            err, ms_, graph, plain_, bound, lib = lm_intern[w4_key]
+            err, ms_, graph, plain_, bound, lib = res[w4_key]
             out.update(max_abs_err=max(out["max_abs_err"], err), ms_w4=ms_,
                        ms_w4_graph=graph, plain_ms_w4=plain_,
                        bound_ms_w4=bound,
@@ -3129,7 +3404,9 @@ def main() -> int:
     by_path = {"lm_serve": lm_serve["launches"]["sla2_decode_paged"],
                "lm_spec_linear": lm_spec["launches"]["sla2_decode_paged"],
                "lm_prefix": on_prefix(lm_prefix, "sla2_decode_paged"),
-               "lm_internlm2": lm_intern["launches"]["sla2_decode_paged"]}
+               "lm_internlm2": lm_intern["launches"]["sla2_decode_paged"],
+               "lm_llama4": lm_llama4["launches"]["sla2_decode_paged"],
+               "lm_llama3": lm_llama3["launches"]["sla2_decode_paged"]}
     rows.append({
         "name": "sla2_decode_paged", "route": "cuda",
         "source": "src/repro_torch/csrc/sla2_decode_paged.cu",
@@ -3145,7 +3422,11 @@ def main() -> int:
         "internlm2": {"shape": "internlm2-20b layer 0, B 4, Hkv 8, n_rep 6, "
                                "Dh 128, bk 64, bf16 pool; W 4 the linear "
                                "drafter's window",
-                      **n_rep6("decode", "decode_w4")},
+                      **gqa(lm_intern, "decode", "decode_w4")},
+        "llama3_405b": {"shape": "llama3-405b layer 0, B 4, Hkv 8, n_rep 16, "
+                                 "Dh 128, bk 64, bf16 pool; W 4 the linear "
+                                 "drafter's window",
+                        **gqa(lm_llama3, "decode", "decode_w4")},
         "library_ms": None,
         "library_note": "no PyTorch call computes routed paged attention "
                         "with the linear complement and the alpha combine"})
@@ -3171,7 +3452,12 @@ def main() -> int:
         "internlm2": {"shape": "internlm2-20b layer 0 (the dense model from "
                                "its tensors), B 4, Hkv 8, n_rep 6, Dh 128, "
                                "bk 64, bf16 pool; W 4 the n-gram window",
-                      **n_rep6("dense", "dense_w4")},
+                      **gqa(lm_intern, "dense", "dense_w4")},
+        "llama3_405b": {"shape": "llama3-405b layer 0 (the dense model from "
+                                 "its tensors), B 4, Hkv 8, n_rep 16, Dh 128, "
+                                 "bk 64, bf16 pool; W 4 the n-gram window (64 "
+                                 "rows a block)",
+                        **gqa(lm_llama3, "dense", "dense_w4")},
         "timing": "ms: a loop of 50 wrapper calls between CUDA events, as "
                   "the other kernels; *_graph: 20 calls replayed from a "
                   "CUDA graph (device time without the host's issue "
@@ -3186,11 +3472,23 @@ def main() -> int:
                                  ("lm_spec_linear", lm_spec),
                                  ("lm_dense_serve", lm_dense["off"]),
                                  ("lm_spec_ngram", lm_dense["ngram"]),
-                                 ("lm_internlm2", lm_intern))}
+                                 ("lm_internlm2", lm_intern),
+                                 ("lm_llama4", lm_llama4),
+                                 ("lm_llama3", lm_llama3))}
     by_path.update(lm_prefix=on_prefix(lm_prefix, "paged_flash_prefill"),
                    lm_prefix_dense=on_prefix(lm_prefix_dense,
                                              "paged_flash_prefill"))
-    long6 = n_rep6("prefill_last")
+
+    def gqa_prefill(res, shape):
+        long = gqa(res, "prefill_last")
+        return {"shape": shape, "offset": res["prefill_offset"],
+                **gqa(res, "prefill"),
+                "offset_long": res["prefill_last_offset"],
+                "ms_long": long["ms"], "plain_ms_long": long["plain_ms"],
+                "bound_ms_long": long["bound_ms"],
+                "library_ms_long": long["library_ms"],
+                "max_abs_err_long": long["max_abs_err"]}
+
     rows.append({
         "name": "paged_flash_prefill", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_prefill.cu",
@@ -3203,17 +3501,12 @@ def main() -> int:
         "offset": 2 * LM_CHUNK, "ms_long": l_ms, "bound_ms_long": l_bound,
         "library_ms_long": l_lib, "offset_long": LM_PROMPTS[0] - LM_CHUNK,
         "sweep_max_rel_err": lm_kern["sweep_err"],
-        "internlm2": {"shape": "internlm2-20b layer 0, 48 query heads over 8 "
-                               "KV heads (n_rep 6), C 512, Dh 128, bk 64, "
-                               "bf16",
-                      "offset": lm_intern["prefill_offset"],
-                      **n_rep6("prefill"),
-                      "offset_long": lm_intern["prefill_last_offset"],
-                      "ms_long": long6["ms"],
-                      "plain_ms_long": long6["plain_ms"],
-                      "bound_ms_long": long6["bound_ms"],
-                      "library_ms_long": long6["library_ms"],
-                      "max_abs_err_long": long6["max_abs_err"]},
+        "internlm2": gqa_prefill(
+            lm_intern, "internlm2-20b layer 0, 48 query heads over 8 KV "
+                       "heads (n_rep 6), C 512, Dh 128, bk 64, bf16"),
+        "llama3_405b": gqa_prefill(
+            lm_llama3, "llama3-405b layer 0, 128 query heads over 8 KV "
+                       "heads (n_rep 16), C 512, Dh 128, bk 64, bf16"),
         "library_note": "scaled_dot_product_attention over the K/V pages "
                         "gathered into a contiguous copy (gather not timed) "
                         "with the offset-causal mask"})

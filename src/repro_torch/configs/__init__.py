@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the video DiT, qwen3-14b and
-internlm2-20b so far.
+"""Architecture registry of the port: the video DiT, qwen3-14b,
+internlm2-20b, llama4-maverick-400b (MoE) and llama3-405b so far.
 
 Each module exposes ``config(**overrides)`` (full size) and
 ``smoke_config(**overrides)`` (reduced, for CPU tests).
@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_NAMES = ["wan_dit_1_3b", "qwen3_14b", "internlm2_20b"]
+ARCH_NAMES = ["wan_dit_1_3b", "qwen3_14b", "internlm2_20b",
+              "llama4_maverick_400b", "llama3_405b"]
 
 
 def _module(name: str):

@@ -12,7 +12,8 @@ baseline's ``proj_l`` (applied as ``o_l @ proj_l`` on both sides) copy as
 they are.
 ``train_state_from_numpy`` carries a whole train state across: the AdamW
 moments and the EF buffers have the params' tree, so they go through the
-same converter (and its transposes).
+same converter (and its transposes); an MoE stack's expert tensors keep
+the JAX layout there too.
 """
 from __future__ import annotations
 
@@ -144,27 +145,31 @@ def lm_params_from_numpy(tree: dict, cfg: T.ModelConfig,
                          device="cuda") -> T.LMParams:
     """Build ``LMParams`` on ``device`` holding the reference LM's values.
 
-    The reference stacks its layers in ``groups``: every leaf of
-    ``groups["l<k>"]`` has a leading axis of ``n_groups``, and layer
-    ``g * len(layer_kinds) + k`` is entry g of sub-key ``l<k>``.  Matrices
-    applied as ``x @ w`` (in, out) are transposed into ``nn.Linear``
-    weights (out, in); ``lm_head`` (d_model, vocab) likewise.  Only a
-    ``mechanism="sla2"`` tree has ``sla2`` leaves, only an ``"sla"`` one
-    ``sla``."""
+    The reference keeps its ``first_kinds`` layers unrolled in
+    ``prefix_layers`` and stacks the rest in ``groups``: every leaf of
+    ``groups["l<k>"]`` has a leading axis of ``n_groups``.
+    ``T.layer_layout`` gives each of the port's layers its place there.
+    Matrices applied as ``x @ w`` (in, out) are transposed into
+    ``nn.Linear`` weights (out, in); ``lm_head`` (d_model, vocab)
+    likewise.  The MoE's ``router`` (d, E), ``w_in`` (E, d, 2 ff) and
+    ``w_out`` (E, ff, d) keep the JAX layout (``models/moe.py``); its
+    shared expert is a gated MLP.  Only a ``mechanism="sla2"`` tree has
+    ``sla2`` leaves, only an ``"sla"`` one ``sla``."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     params = T.init_model(g, cfg, dev)
-    n_kinds = len(cfg.layer_kinds)
     with torch.no_grad():
         _set(params.embed, tree["embed"]["table"])
         _set(params.final_norm.scale, tree["final_norm"]["scale"])
         if params.lm_head is not None:
             _linear(params.lm_head, tree["lm_head"])
-        for li, lp in enumerate(params.layers):
-            grp, sub = divmod(li, n_kinds)
-            at = lambda x: np.asarray(x)[grp]
-            lt = tree["groups"][f"l{sub}"]
+        for lp, (kind, place) in zip(params.layers, T.layer_layout(cfg)):
+            if place[0] == "prefix_layers":
+                lt, at = tree["prefix_layers"][place[1]], np.asarray
+            else:
+                lt = tree["groups"][place[1]]
+                at = lambda x, grp=place[2]: np.asarray(x)[grp]
             _set(lp.ln1.scale, at(lt["ln1"]["scale"]))
             _set(lp.ln2.scale, at(lt["ln2"]["scale"]))
             at_ = lt["attn"]
@@ -180,6 +185,14 @@ def lm_params_from_numpy(tree: dict, cfg: T.ModelConfig,
                                (at_["sla2"].get("router") or {}).items()}})
             if lp.attn.sla is not None:
                 _set(lp.attn.sla.proj_l, at(at_["sla"]["proj_l"]))
-            for name in ("w_up", "w_down", "w_gate"):
-                _linear(getattr(lp.mlp, name), at(lt["mlp"][name]))
+            if kind == "moe":
+                mt = lt["moe"]
+                for name in ("router", "w_in", "w_out"):
+                    _set(getattr(lp.moe, name), at(mt[name]))
+                mlp, ft = lp.moe.shared, mt.get("shared")
+            else:
+                mlp, ft = lp.mlp, lt["mlp"]
+            if mlp is not None:
+                for name in ("w_up", "w_down", "w_gate"):
+                    _linear(getattr(mlp, name), at(ft[name]))
     return params

@@ -1,6 +1,9 @@
 """Model handle: ``build_model(cfg)`` returns a ``Model`` with the surface
 the engines use: the video DiT (diffusion serving and training) and the
-dense decoder-only LM (training, static and paged serving).
+decoder-only LM of 'dense' and 'moe' layers (training, static and paged
+serving; qwen3-14b, internlm2-20b, llama3-405b, llama4-maverick-400b).
+An MoE stack needs no handle of its own: its layers page K/V as dense
+ones do, and the MoE layers' aux loss is part of ``loss``.
 
     model.init(seed, device="cuda")             -> params
     model.loss(params, batch)                   -> (loss, metrics)      DiT

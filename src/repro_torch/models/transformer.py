@@ -1,21 +1,30 @@
 """The decoder-only LM of the port: the ``dense`` layer kind (pre-norm
-attention + gated SiLU MLP) in an ``nn.ModuleList``, with the
+attention + gated SiLU MLP) and the ``moe`` kind (pre-norm attention +
+the MoE FFN of ``models/moe.py``) in an ``nn.ModuleList``, with the
 full-sequence forward and the next-token loss (training), the static
 cache path (``prefill`` / ``decode_step``: one shared length for the
 batch), its paged serving path (chunked prefill, per-slot decode, swap of
 one slot's state, the prefix cache's totals snapshot and page copy) and
 speculative decoding (the verify window, its commit, and the SLA2 linear
-drafter's state and step).  The reference
-stacks its layers into scanned ``groups``; ``convert.lm_params_from_numpy``
-unstacks them.
+drafter's state and step).
+
+The reference lays its layers out as the unrolled ``first_kinds`` prefix
+layers, then scanned ``groups`` of ``layer_kinds``; ``layer_layout`` maps
+each of the port's layers, in the order they run, to its kind and its
+place there (``convert.lm_params_from_numpy`` reads it).  An ``moe``
+layer pages K/V as a ``dense`` one does; its FFN sees every row the
+reference passes (all decode slots, the whole verify window, the padded
+prefill chunk, the whole static wave), since the experts' capacity
+depends on the row count.  ``forward`` sums the MoE layers' load-balance
+losses into its aux.
 
 With ``remat == "full"`` and grad enabled, every layer and every loss
 chunk runs under ``torch.utils.checkpoint``: the backward re-runs the
 layer's forward, so the sparse-branch forward kernel runs twice per
 layer and microbatch, as under ``jax.checkpoint``.
 
-MoE, MLA and recurrent layers (``moe``, ``mla``, ``ssm``, other
-``layer_kinds``) are not ported yet (ROADMAP) and raise.
+MLA and recurrent layers (``mla_dense``, ``mla_moe``, ``hybrid``,
+``mlstm``, ``slstm``) are not ported yet (ROADMAP) and raise.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -38,8 +48,9 @@ class ModelConfig:
     """One decoder-only architecture: geometry, attention mechanism
     ('full', 'sla2', 'sla', 'sparse_only') and masks, SLA2 knobs, the
     paged-serving switches and the training knobs (the fields of the
-    reference's ModelConfig that a stack of dense layers reads; those of
-    other families wait for their slices)."""
+    reference's ModelConfig that a stack of dense and MoE layers reads;
+    those of other families wait for their slices: ``family`` is read only
+    for VLMs, ``ep_axis`` only under a mesh)."""
     name: str = "model"
     n_layers: int = 2
     d_model: int = 256
@@ -67,7 +78,7 @@ class ModelConfig:
     paged_impl: str = "auto"           # fused | gather | auto
     decode_quant_bits: str = "none"    # QAT tiles of the decode kernel
     kv_quant: str = "none"             # page-pool storage: none|int8|fp8
-    moe: Optional[Any] = None
+    moe: Optional[MOE.MoEConfig] = None
     mla: Optional[Any] = None
     ssm: Optional[Any] = None
     remat: str = "full"                # full | none (training only)
@@ -106,22 +117,51 @@ class ModelConfig:
                                    fuse_branches=self.fuse_branches)
 
 
+PORTED_KINDS = ("dense", "moe")
+
+
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference's ModelConfig the port lacks."""
+    """Raise for the parts of the reference's ModelConfig the port lacks,
+    and for a layout the reference refuses."""
     kinds = tuple(cfg.first_kinds) + tuple(cfg.layer_kinds)
-    if any(k != "dense" for k in kinds) or cfg.moe or cfg.mla or cfg.ssm:
+    if any(k not in PORTED_KINDS for k in kinds) or cfg.mla or cfg.ssm:
         raise NotImplementedError(
-            f"{cfg.name}: only the 'dense' layer kind is ported (layer kinds "
-            f"{kinds}, moe/mla/ssm set: {bool(cfg.moe or cfg.mla or cfg.ssm)})"
+            f"{cfg.name}: only the {PORTED_KINDS} layer kinds are ported "
+            f"(layer kinds {kinds}, mla/ssm set: {bool(cfg.mla or cfg.ssm)})"
             "; the other families are in ROADMAP")
+    if "moe" in kinds and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: an 'moe' layer needs cfg.moe")
+    body = cfg.n_layers - len(cfg.first_kinds)
+    if body < 0 or body % len(cfg.layer_kinds):
+        raise ValueError(f"{cfg.name}: {body} layers after the prefix are "
+                         f"not a whole number of groups {cfg.layer_kinds}")
+
+
+def layer_layout(cfg: ModelConfig) -> list:
+    """Each layer's (kind, place in the reference's param tree), in the
+    order the stack runs them: the prefix layers ``("prefix_layers", i)``,
+    then sub-layer k of group g, ``("groups", "l<k>", g)``."""
+    out = [(kind, ("prefix_layers", i))
+           for i, kind in enumerate(cfg.first_kinds)]
+    n_groups = (cfg.n_layers - len(cfg.first_kinds)) // len(cfg.layer_kinds)
+    out += [(kind, ("groups", f"l{k}", g)) for g in range(n_groups)
+            for k, kind in enumerate(cfg.layer_kinds)]
+    return out
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """The kind of every layer, in the order the stack runs them."""
+    return [kind for kind, _ in layer_layout(cfg)]
 
 
 class LayerParams(nn.Module):
-    """One dense layer: ln1, attention, ln2, gated MLP."""
+    """One layer: ln1, attention, ln2 and its FFN: a gated MLP (``mlp``,
+    kind 'dense') or an MoE (``moe``, kind 'moe')."""
 
-    def __init__(self, ln1, attn, ln2, mlp):
+    def __init__(self, ln1, attn, ln2, mlp=None, moe=None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
+        self.mlp, self.moe = mlp, moe
 
 
 class LMParams(nn.Module):
@@ -157,12 +197,17 @@ def init_model(generator: torch.Generator, cfg: ModelConfig,
     acfg = cfg.attention_config()
     embed = L.truncated_normal(generator, (cfg.vocab_size, d), dt, 1.0,
                                device)
-    layers = [LayerParams(
-        L.init_rmsnorm(d, dt, device),
-        A.init_attention(generator, acfg, dt, device),
-        L.init_rmsnorm(d, dt, device),
-        L.init_gated_mlp(generator, d, cfg.d_ff, dtype=dt, device=device))
-        for _ in range(cfg.n_layers)]
+    layers = []
+    for kind in layer_kinds(cfg):
+        ln1 = L.init_rmsnorm(d, dt, device)
+        attn = A.init_attention(generator, acfg, dt, device)
+        ln2 = L.init_rmsnorm(d, dt, device)
+        if kind == "moe":
+            layers.append(LayerParams(ln1, attn, ln2, moe=MOE.init_moe(
+                generator, d, cfg.moe, dt, device)))
+        else:
+            layers.append(LayerParams(ln1, attn, ln2, L.init_gated_mlp(
+                generator, d, cfg.d_ff, dtype=dt, device=device)))
     head = None
     if not cfg.tie_embeddings:
         head = L.linear(generator, d, cfg.vocab_size, dt, d ** -0.5, device)
@@ -184,27 +229,40 @@ def _embed(params: LMParams, cfg: ModelConfig, tokens):
 # Full-sequence forward and the next-token loss
 # ---------------------------------------------------------------------------
 
-def _layer_forward(lp: LayerParams, acfg: A.AttentionConfig, x, positions):
+def _ffn(kind: str, lp: LayerParams, cfg: ModelConfig, h):
+    """The FFN half of a layer on its normed input: (y, aux), aux None
+    for a dense MLP."""
+    if kind == "moe":
+        return MOE.moe_ffn(lp.moe, h, cfg.moe)
+    return L.gated_mlp(lp.mlp, h), None
+
+
+def _layer_forward(lp: LayerParams, kind: str, cfg: ModelConfig,
+                   acfg: A.AttentionConfig, x, positions):
     x = x + A.attention_forward(lp.attn, acfg, L.rmsnorm(lp.ln1, x),
                                 positions)
-    return x + L.gated_mlp(lp.mlp, L.rmsnorm(lp.ln2, x))
+    y, aux = _ffn(kind, lp, cfg, L.rmsnorm(lp.ln2, x))
+    return x + y, aux
 
 
 def forward(params: LMParams, cfg: ModelConfig, tokens):
     """Full-sequence forward of tokens (B, N).  Returns (final-normed
-    hidden (B, N, d_model), aux loss 0: dense layers have none)."""
+    hidden (B, N, d_model), aux: the sum of the MoE layers' load-balance
+    losses, 0 for a dense stack)."""
     acfg = cfg.attention_config()
     x = _embed(params, cfg, tokens)
     b, n, _ = x.shape
     positions = torch.arange(n, device=x.device)[None].expand(b, n)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for lp in params.layers:
-        if remat:
-            x = checkpoint(_layer_forward, lp, acfg, x, positions,
-                           use_reentrant=False)
-        else:
-            x = _layer_forward(lp, acfg, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, lp in zip(layer_kinds(cfg), params.layers):
+        if remat:
+            x, a = checkpoint(_layer_forward, lp, kind, cfg, acfg, x,
+                              positions, use_reentrant=False)
+        else:
+            x, a = _layer_forward(lp, kind, cfg, acfg, x, positions)
+        if a is not None:
+            aux = aux + a
     return L.rmsnorm(params.final_norm, x), aux
 
 
@@ -295,8 +353,9 @@ def decode_step(params: LMParams, cfg: ModelConfig, token_t, caches):
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The port serves stacks of 'dense' layers."""
-    return all(k == "dense"
+    """The port serves stacks of 'dense' and 'moe' layers: both page K/V
+    (the reference's ``paged-kv`` cache kind)."""
+    return all(k in PORTED_KINDS
                for k in tuple(cfg.first_kinds) + tuple(cfg.layer_kinds))
 
 
@@ -374,14 +433,16 @@ def copy_kv_page(cfg: ModelConfig, caches: dict, src: int, dst: int) -> dict:
 
 def _stack(params: LMParams, cfg: ModelConfig, x, caches, mix_fn):
     """Run the layers with ``mix_fn(layer_params, h, layer_state)`` ->
-    (y, layer_state) as the attention body; returns (final-normed hidden,
-    {"layers": the returned states})."""
+    (y, layer_state) as the attention body and each layer's FFN (the MoE
+    aux is not needed here); returns (final-normed hidden, {"layers": the
+    returned states})."""
     layers = []
-    for lp, lc in zip(params.layers, caches["layers"]):
+    for kind, lp, lc in zip(layer_kinds(cfg), params.layers,
+                            caches["layers"]):
         y, lc = mix_fn(lp.attn, L.rmsnorm(lp.ln1, x), lc)
         layers.append(lc)
         x = x + y
-        x = x + L.gated_mlp(lp.mlp, L.rmsnorm(lp.ln2, x))
+        x = x + _ffn(kind, lp, cfg, L.rmsnorm(lp.ln2, x))[0]
     return L.rmsnorm(params.final_norm, x), {**caches, "layers": layers}
 
 

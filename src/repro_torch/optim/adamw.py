@@ -8,9 +8,11 @@ clipped by their global norm, taken in f32 over every leaf.  The moments
 Parameters are an ``nn.Module`` (or a dict of tensors); the moments and
 gradients are dicts keyed by parameter name.  ``adamw_update`` updates the
 parameters and the moments in place (the reference returns new trees).
-The reference's ``layerwise_threshold`` splits stacked (n_layers, ...)
-leaves to bound its f32 temporaries to one layer; the port's leaves are
-already one layer each, so it has no counterpart here.
+With ``layerwise_threshold``, a leaf of 3 or more dimensions and at
+least that many elements is updated one slice of its leading axis at a
+time, as the reference does with its stacked leaves: the numbers are the
+same, and the f32 temporaries are bounded by one slice.  In the port the
+only such leaves are the MoE expert tensors (E, d, 2 ff) and (E, ff, d).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ class AdamWConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     state_dtype: str = "float32"   # 'float32' | 'bfloat16'
+    layerwise_threshold: int = 1 << 24     # elements; 0 disables
 
 
 def named_leaves(params) -> dict:
@@ -81,15 +84,25 @@ def adamw_update(params, grads: dict, state: dict, cfg: AdamWConfig,
     bc2 = (1.0 - torch.pow(torch.tensor(b2, dtype=f32), step_f)).to(dev)
     lr = (cfg.lr * torch.as_tensor(lr_scale, dtype=f32).cpu()).to(dev)
     sdt = _DTYPES[cfg.state_dtype]
-    for name, p in leaves.items():
-        g = grads[name].to(f32) * clip
-        m32 = b1 * state["m"][name].to(f32) + (1 - b1) * g
-        v32 = b2 * state["v"][name].to(f32) + (1 - b2) * g * g
+
+    def update(p, g, m, v):
+        g = g.to(f32) * clip
+        m32 = b1 * m.to(f32) + (1 - b1) * g
+        v32 = b2 * v.to(f32) + (1 - b2) * g * g
         mh = m32 / bc1
         vh = v32 / bc2
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.to(f32)
         p.copy_((p.to(f32) - lr * delta).to(p.dtype))
-        state["m"][name].copy_(m32.to(sdt))
-        state["v"][name].copy_(v32.to(sdt))
+        m.copy_(m32.to(sdt))
+        v.copy_(v32.to(sdt))
+
+    for name, p in leaves.items():
+        args = (p, grads[name], state["m"][name], state["v"][name])
+        if (cfg.layerwise_threshold and p.dim() >= 3
+                and p.numel() >= cfg.layerwise_threshold and p.shape[0] > 1):
+            for i in range(p.shape[0]):
+                update(*(a[i] for a in args))
+        else:
+            update(*args)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

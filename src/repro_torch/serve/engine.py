@@ -32,6 +32,12 @@ private one first.  Cached prefixes that no slot maps are evicted, least
 recently used first, before the pool preempts a live slot.  Outputs are
 token-identical to ``prefix_cache=False``.
 
+The engine is the same for every ported layer kind: an MoE stack
+(llama4-maverick) pages K/V as a dense one does, and each dispatch hands
+the model every slot's row (inactive slots carry token 0), as the
+reference does, since the MoE's expert capacity counts the rows of the
+call.
+
 The page table and the scheduler stay on the host; the pools, the model
 and the sampling run on the device, and only the sampled ids are copied
 back.  Greedy sampling is an argmax; with ``temperature > 0`` the Gumbel

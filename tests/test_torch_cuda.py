@@ -446,8 +446,9 @@ def test_paged_kernels_reject_what_they_do_not_take(card):
 
 
 # ---------------------------------------------------------------------------
-# GQA ratio 6 (internlm2-20b: 48 query heads over 8 KV heads) and pages
-# shared between page-table rows (the prefix cache)
+# GQA ratios 6 (internlm2-20b: 48 query heads over 8 KV heads) and 16
+# (llama3-405b: 128 over 8), and pages shared between page-table rows (the
+# prefix cache)
 # ---------------------------------------------------------------------------
 
 def _routing(g, b, hkv, w, k_sel, n_pages, bk, lo, hi):
@@ -462,14 +463,10 @@ def _routing(g, b, hkv, w, k_sel, n_pages, bk, lo, hi):
     return phys, jlog, valid, comp, t_new
 
 
-@pytest.mark.parametrize("quant,kv_quant,w", [
-    ("none", "none", 1), ("none", "none", 4), ("int8", "int8", 1),
-    ("none", "fp8", 4)])
-def test_sla2_decode_at_gqa_ratio_6(card, quant, kv_quant, w):
-    """internlm2-20b's decode shape: B 4, Hkv 8, n_rep 6, Dh 128, K_sel
-    26; the split kernel (f32 tiles) and the QAT kernel."""
-    g = card
-    b, hkv, n_rep, dh, bk, k_sel, n_pages = 4, 8, 6, 128, 64, 26, 400
+def _check_sla2_decode(g, n_rep, quant, kv_quant, w):
+    """sla2_decode_verify at B 4, Hkv 8, Dh 128, K_sel 26 against its
+    plain version: the split kernel (f32 tiles) and the QAT kernel."""
+    b, hkv, dh, bk, k_sel, n_pages = 4, 8, 128, 64, 26, 400
     kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, torch.bfloat16)
     q = torch.randn(b, hkv, w, n_rep, dh, generator=g,
                     device="cuda").bfloat16()
@@ -488,13 +485,26 @@ def test_sla2_decode_at_gqa_ratio_6(card, quant, kv_quant, w):
     assert torch.isfinite(o).all() and _rel(o, want) < BOUND[quant]
 
 
-@pytest.mark.parametrize("w,window,prefix_len,kv_quant", [
-    (1, None, 0, "none"), (4, None, 0, "none"), (4, 256, 64, "int8"),
-    (1, 256, 0, "fp8")])
-def test_dense_decode_at_gqa_ratio_6(card, w, window, prefix_len, kv_quant):
-    """dense_decode at n_rep 6: a W 4 window puts 24 rows in a block."""
-    g = card
-    b, hkv, n_rep, dh, bk, max_p, n_pages = 4, 8, 6, 128, 64, 64, 300
+SLA2_DECODE_CASES = [("none", "none", 1), ("none", "none", 4),
+                     ("int8", "int8", 1), ("none", "fp8", 4)]
+
+
+@pytest.mark.parametrize("quant,kv_quant,w", SLA2_DECODE_CASES)
+def test_sla2_decode_at_gqa_ratio_6(card, quant, kv_quant, w):
+    """internlm2-20b's decode shape (n_rep 6)."""
+    _check_sla2_decode(card, 6, quant, kv_quant, w)
+
+
+@pytest.mark.parametrize("quant,kv_quant,w", SLA2_DECODE_CASES)
+def test_sla2_decode_at_gqa_ratio_16(card, quant, kv_quant, w):
+    """llama3-405b's decode shape: n_rep 16 is RMAX, the most rows the
+    paged kernels' row state holds; the split kernel's block takes one
+    window row, so its 16 rows fill that state."""
+    _check_sla2_decode(card, 16, quant, kv_quant, w)
+
+
+def _check_dense_decode(g, n_rep, w, window, prefix_len, kv_quant):
+    b, hkv, dh, bk, max_p, n_pages = 4, 8, 128, 64, 64, 300
     kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, torch.bfloat16)
     q = torch.randn(b, hkv, w, n_rep, dh, generator=g,
                     device="cuda").bfloat16()
@@ -511,11 +521,25 @@ def test_dense_decode_at_gqa_ratio_6(card, w, window, prefix_len, kv_quant):
     assert torch.isfinite(o).all() and _rel(o, want) < 2e-5
 
 
-@pytest.mark.parametrize("offset,kv_quant", [
-    (0, "none"), (1024, "none"), (7680, "none"), (3584, "int8")])
-def test_prefill_at_gqa_ratio_6(card, offset, kv_quant):
-    g = card
-    hkv, n_rep, dh, bk, c = 8, 6, 128, 64, 512
+DENSE_DECODE_CASES = [(1, None, 0, "none"), (4, None, 0, "none"),
+                      (4, 256, 64, "int8"), (1, 256, 0, "fp8")]
+
+
+@pytest.mark.parametrize("w,window,prefix_len,kv_quant", DENSE_DECODE_CASES)
+def test_dense_decode_at_gqa_ratio_6(card, w, window, prefix_len, kv_quant):
+    """dense_decode at n_rep 6: a W 4 window puts 24 rows in a block."""
+    _check_dense_decode(card, 6, w, window, prefix_len, kv_quant)
+
+
+@pytest.mark.parametrize("w,window,prefix_len,kv_quant", DENSE_DECODE_CASES)
+def test_dense_decode_at_gqa_ratio_16(card, w, window, prefix_len, kv_quant):
+    """dense_decode at n_rep 16: a W 4 window puts 64 rows in a block,
+    exactly SPLIT_ROWS."""
+    _check_dense_decode(card, 16, w, window, prefix_len, kv_quant)
+
+
+def _check_prefill(g, n_rep, offset, kv_quant):
+    hkv, dh, bk, c = 8, 128, 64, 512
     used = (offset + c) // bk
     n_pages = used + 40
     kp, vp, ks, vs = _pool(g, n_pages, hkv, bk, dh, kv_quant, torch.bfloat16)
@@ -530,7 +554,22 @@ def test_prefill_at_gqa_ratio_6(card, offset, kv_quant):
     assert _rel(o, KP.paged_flash_prefill_plain(q, kp, vp, row, **kw)) < 2e-5
 
 
-@pytest.mark.parametrize("n_rep", [5, 6])
+PREFILL_CASES = [(0, "none"), (1024, "none"), (7680, "none"), (3584, "int8")]
+
+
+@pytest.mark.parametrize("offset,kv_quant", PREFILL_CASES)
+def test_prefill_at_gqa_ratio_6(card, offset, kv_quant):
+    _check_prefill(card, 6, offset, kv_quant)
+
+
+@pytest.mark.parametrize("offset,kv_quant", PREFILL_CASES)
+def test_prefill_at_gqa_ratio_16(card, offset, kv_quant):
+    """128 query heads over 8 KV heads: 16 x 512 = 8192 stacked rows a
+    KV head."""
+    _check_prefill(card, 16, offset, kv_quant)
+
+
+@pytest.mark.parametrize("n_rep", [5, 6, 16])
 def test_paged_kernels_over_shared_and_copied_pages(card, n_rep):
     """A prefix cache hit maps one physical prefix into several page-table
     rows, and copy-on-write moves a page to another physical id: the
@@ -582,3 +621,31 @@ def test_paged_kernels_over_shared_and_copied_pages(card, n_rep):
     o2 = KP.sla2_decode_verify(*args, phys_m, *rest, block_k=bk)
     torch.cuda.synchronize()
     assert torch.equal(o1, o2)
+
+
+# ---------------------------------------------------------------------------
+# The MoE FFN (no kernel of its own: torch.bmm over every expert)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,top_k", [((4, 1), 1), ((1, 512), 1),
+                                        ((2, 96), 2)])
+def test_moe_ffn_on_the_card_matches_the_cpu(card, rows, top_k):
+    """f32, 128 experts: the same routing and drops on both devices
+    (keep masks equal), y within 1e-5 relative."""
+    from repro_torch.models import moe as M
+    cfg = M.MoEConfig(num_experts=128, top_k=top_k, d_ff_expert=256,
+                      num_shared=1)
+    d = 512
+    cpu = M.init_moe(torch.Generator().manual_seed(0), d, cfg)
+    dev = M.init_moe(card, d, cfg, device="cuda")
+    with torch.no_grad():
+        for a, b in zip(dev.parameters(), cpu.parameters()):
+            a.copy_(b)
+        x = torch.randn(*rows, d, generator=torch.Generator().manual_seed(1))
+        y, aux = M.moe_ffn(cpu, x, cfg)
+        yd, auxd = M.moe_ffn(dev, x.cuda(), cfg)
+        keep = M.route(cpu, x.reshape(-1, d), cfg)[4]
+        keepd = M.route(dev, x.reshape(-1, d).cuda(), cfg)[4]
+    assert torch.equal(keep, keepd.cpu())
+    assert _rel(yd.cpu(), y) < 1e-5
+    assert abs(float(auxd) - float(aux)) <= 1e-5 * float(aux)

@@ -272,6 +272,8 @@ def test_dispatch_and_what_is_not_ported(ref):
         TA.init_attention(torch.Generator(), dataclasses.replace(
             acfg, mechanism="moba"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(tsmoke("qwen3_14b", layer_kinds=("mla_dense",)))
+    with pytest.raises(ValueError, match="needs cfg.moe"):
         build_model(tsmoke("qwen3_14b", layer_kinds=("moe",)))
 
 
